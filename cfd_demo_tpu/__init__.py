@@ -1,19 +1,12 @@
-"""cfd-demo-tpu: a TPU-native 2D incompressible Navier-Stokes framework.
+"""The package's former name, kept so existing imports still work.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
-TSultanov/cfd-demo (staggered-grid PISO solver with upwind schemes,
-iterative pressure projection, obstacles, tracer particles, meshing and
-rendering), designed for TPU: pure pytree state, fused whole-array
-stencils, lax.scan/while_loop iteration, sharding over ICI meshes, and
-Pallas kernels on the hot path.
-"""
+Importing it returns cfd_demo_jax itself, and every cfd_demo_jax module
+loaded by then is registered under this name too, so old submodule
+imports resolve to the same module objects."""
+import sys
 
-from .core.config import (Box, Cylinder, FlowCase, Grid, InletProfile, PressureSolver,
-                          Semantics, SimulationParams, SolverOptions,
-                          VelocityScheme, cavity_grid, default_grid,
-                          default_js_grid, solver_options_for)
-from .core.state import State, init_state, set_params
-from .solver.piso import (Scene, StepDiagnostics, make_run, make_scene,
-                          make_step, piso_substep, step_fn)
+import cfd_demo_jax
 
-__version__ = "0.1.0"
+for _name, _module in list(sys.modules.items()):
+    if _name.split(".")[0] == "cfd_demo_jax":
+        sys.modules[__name__ + _name[len("cfd_demo_jax"):]] = _module

@@ -1,4 +1,4 @@
-// Native geometry core for cfd-demo-tpu (host-side).
+// Native geometry core for cfd-demo-jax (host-side).
 //
 // C++ rebuild of the performance-relevant parts of the reference's
 // Rust geometry subsystem (/root/reference/src/quad_mesh/*):

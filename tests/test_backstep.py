@@ -13,10 +13,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from cfd_demo_tpu import (Grid, InletProfile, Semantics, SimulationParams,
+from cfd_demo_jax import (Grid, InletProfile, Semantics, SimulationParams,
                           make_scene, solver_options_for)
-from cfd_demo_tpu.apps.backstep import backstep_grid, reattachment_length
-from cfd_demo_tpu.ops.bc import inlet_profile_column
+from cfd_demo_jax.apps.backstep import backstep_grid, reattachment_length
+from cfd_demo_jax.ops.bc import inlet_profile_column
 
 
 def test_parabolic_upper_profile_shape():
@@ -64,7 +64,7 @@ def test_backstep_recirculation_re100():
                          inlet_profile=InletProfile.PARABOLIC_UPPER),
         solver_options_for(Semantics.RUST, early_exit=False))
     from functools import partial
-    from cfd_demo_tpu.solver.piso import step_fn
+    from cfd_demo_jax.solver.piso import step_fn
     step = partial(step_fn, scene)
 
     @jax.jit

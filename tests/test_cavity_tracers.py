@@ -1,12 +1,12 @@
 """Lid-driven cavity flow case + tracer particles."""
 import numpy as np
 
-from cfd_demo_tpu import (FlowCase, Grid, Semantics, SimulationParams,
+from cfd_demo_jax import (FlowCase, Grid, Semantics, SimulationParams,
                           cavity_grid, make_run, make_scene, make_step,
                           solver_options_for)
-from cfd_demo_tpu.ops.divergence import divergence
-from cfd_demo_tpu.oracle.reference import NumpyModel
-from cfd_demo_tpu.ops import tracers as trc
+from cfd_demo_jax.ops.divergence import divergence
+from cfd_demo_jax.oracle.reference import NumpyModel
+from cfd_demo_jax.ops import tracers as trc
 
 from conftest import l2
 
@@ -85,7 +85,7 @@ def test_tracers_lifecycle():
     assert int(ts100.alive.sum()) >= int(ts.alive.sum())
 
     # Rendering overlay works.
-    from cfd_demo_tpu.render.colormap import VisualizationMode, render_field
+    from cfd_demo_jax.render.colormap import VisualizationMode, render_field
     img = np.asarray(render_field(state.u, state.v, state.p, grid=grid,
                                   mode=VisualizationMode.VELOCITY))
     out = trc.draw_tracers(img, ts, grid)

@@ -13,8 +13,8 @@ import pytest
 
 import jax.numpy as jnp
 
-import cfd_demo_tpu as cfd
-from cfd_demo_tpu import (Box, Cylinder, FlowCase, Grid, InletProfile,
+import cfd_demo_jax as cfd
+from cfd_demo_jax import (Box, Cylinder, FlowCase, Grid, InletProfile,
                           PressureSolver, Semantics, SimulationParams,
                           VelocityScheme, solver_options_for)
 
@@ -114,3 +114,13 @@ def test_random_config(idx):
     mv = scene.mask_v_bc.astype(bool)[:grid.ny, :]
     assert np.all(u[mu] == 0), label
     assert np.all(v[mv] == 0), label
+
+
+@pytest.mark.parametrize("name", ["pressure_impl", "substep_impl",
+                                  "rounds_impl", "pallas_fuse_k",
+                                  "pallas_block_rows", "fdm_precision"])
+def test_removed_kernel_options_are_refused(name):
+    """The hand-written kernel tier and its routing options are gone:
+    every solve is the one XLA program, on every backend."""
+    with pytest.raises(TypeError):
+        cfd.SolverOptions(**{name: 0})

@@ -19,8 +19,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import cfd_demo_tpu as cfd
-from cfd_demo_tpu import (Cylinder, Grid, PressureSolver, Semantics,
+import cfd_demo_jax as cfd
+from cfd_demo_jax import (Cylinder, Grid, PressureSolver, Semantics,
                           SimulationParams, solver_options_for)
 
 
@@ -122,7 +122,7 @@ def test_fast_adjoint_equals_unrolled_gradient():
 def test_fast_adjoint_solve_transpose_is_exact():
     """ops.poisson.jacobi_fixed_adjoint vs unrolled AD at the solve
     level: d/d(pp0) bitwise, d/d(rhs) to accumulation-order noise."""
-    from cfd_demo_tpu.ops.poisson import (_apply_pprime_bcs, jacobi,
+    from cfd_demo_jax.ops.poisson import (_apply_pprime_bcs, jacobi,
                                           jacobi_fixed_adjoint)
     rng = np.random.default_rng(3)
     pp0 = _apply_pprime_bcs(jnp.asarray(
@@ -156,7 +156,7 @@ def test_drag_gradient_matches_finite_differences():
     """Gradient of the control-volume drag force (ops/forces.py) wrt
     viscosity, through a rollout -- the quantity an aerodynamic
     optimization would descend. FD-validated."""
-    from cfd_demo_tpu.ops.forces import control_volume_force
+    from cfd_demo_jax.ops.forces import control_volume_force
     scene = _scene()
     run = cfd.make_run(scene, 6, donate=False)
     s0 = scene.init_state()
@@ -183,7 +183,7 @@ def test_distributed_adjoint_matches_single_device():
     are fixed-trip scans in differentiable mode -- the backward pass
     shards like the forward)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from cfd_demo_tpu.shard.mesh import make_mesh, shard_state
+    from cfd_demo_jax.shard.mesh import make_mesh, shard_state
     scene = _scene()
     s0 = scene.init_state()
 
@@ -191,7 +191,7 @@ def test_distributed_adjoint_matches_single_device():
         st = dataclasses.replace(st, nu=nu)
 
         def body(s, _):
-            from cfd_demo_tpu.solver.piso import step_fn
+            from cfd_demo_jax.solver.piso import step_fn
             s, _ = step_fn(scene, s)
             return s, None
 
@@ -250,7 +250,7 @@ def test_sor_fast_adjoint_transpose_is_exact():
     noise. The sweep composition (red half, black half reading updated
     reds, BCs) is linear in (p'0, rhs) exactly like the Jacobi
     schedule."""
-    from cfd_demo_tpu.ops.poisson import (_apply_pprime_bcs, _iota_masks,
+    from cfd_demo_jax.ops.poisson import (_apply_pprime_bcs, _iota_masks,
                                           _sor_sweep, fixed_linear_adjoint,
                                           sor)
     rng = np.random.default_rng(5)
@@ -293,7 +293,7 @@ def test_mgp_fixed_cycles_fast_adjoint():
     d/d(rhs) to accumulation-order noise."""
     import dataclasses as dc
 
-    from cfd_demo_tpu.ops.poisson import (_apply_pprime_bcs,
+    from cfd_demo_jax.ops.poisson import (_apply_pprime_bcs,
                                           multigrid_production)
     rng = np.random.default_rng(7)
     pp0 = _apply_pprime_bcs(jnp.asarray(
@@ -338,7 +338,7 @@ def test_mgp_implicit_adjoint_solve_level():
     cotangent) must match the directional finite difference of the
     converged solve itself, and d/d(pp0) must be exactly zero (the
     converged solution forgets its warm start)."""
-    from cfd_demo_tpu.ops.poisson import (_apply_pprime_bcs,
+    from cfd_demo_jax.ops.poisson import (_apply_pprime_bcs,
                                           mgp_implicit_adjoint)
     rng = np.random.default_rng(11)
     pp0 = _apply_pprime_bcs(jnp.asarray(
@@ -384,7 +384,7 @@ def test_mgp_adaptive_grad_end_to_end_with_early_exit():
 def test_mgp_implicit_adjoint_cavity_grad_finite():
     """Cavity (all-Neumann, gauge-pinned) through the implicit path:
     the pseudo-inverse backward solve stays finite and nonzero."""
-    from cfd_demo_tpu.ops.poisson import (_apply_pprime_bcs_cavity,
+    from cfd_demo_jax.ops.poisson import (_apply_pprime_bcs_cavity,
                                           mgp_implicit_adjoint)
     rng = np.random.default_rng(13)
     rhs = jnp.asarray(rng.standard_normal((32, 48)), jnp.float32)

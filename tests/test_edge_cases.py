@@ -3,8 +3,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-import cfd_demo_tpu as cfd
-from cfd_demo_tpu import (Cylinder, Grid, Semantics, SimulationParams,
+import cfd_demo_jax as cfd
+from cfd_demo_jax import (Cylinder, Grid, Semantics, SimulationParams,
                           solver_options_for)
 
 
@@ -54,8 +54,7 @@ def test_zero_inlet_keeps_fields_zero():
 
 
 def test_bf16_state_runs_but_is_not_parity_grade():
-    """bf16 full-state audit (docs/STATUS.md gap 1): the solver runs
-    end-to-end in bfloat16 (jnp path; the Pallas kernels gate on f32),
+    """bf16 full-state audit: the solver runs end-to-end in bfloat16,
     stays finite, but accumulates O(1e-1) drift vs float32 within tens
     of steps -- far outside the per-step L2 <= 1e-5 parity target, so
     bf16 is a capability, not a parity mode (docs/SPEC.md)."""

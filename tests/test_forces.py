@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import cfd_demo_tpu as cfd
-from cfd_demo_tpu import (Cylinder, Grid, Semantics, SimulationParams,
+import cfd_demo_jax as cfd
+from cfd_demo_jax import (Cylinder, Grid, Semantics, SimulationParams,
                           solver_options_for)
-from cfd_demo_tpu.ops.forces import (ControlVolume, control_volume_force,
+from cfd_demo_jax.ops.forces import (ControlVolume, control_volume_force,
                                      default_control_volume,
                                      drag_lift_coefficients,
                                      physical_pressure, pressure_force)
@@ -104,7 +104,7 @@ def test_forces_on_sharded_state():
     import pytest
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device virtual CPU mesh")
-    from cfd_demo_tpu.shard.mesh import make_mesh, make_sharded_step, shard_state
+    from cfd_demo_jax.shard.mesh import make_mesh, make_sharded_step, shard_state
 
     mesh = make_mesh()
     g = Grid(nx=64, ny=128, lx=4.0, ly=8.0,

@@ -1,7 +1,7 @@
-"""Golden tests: the jit-compiled TPU solver vs the scalar NumPy oracle.
+"""Golden tests: the jit-compiled solver vs the scalar NumPy oracle.
 
 BASELINE.json acceptance: per-field L2 error <= 1e-5 vs the CPU
-reference, per step. The oracle (cfd_demo_tpu.oracle.reference) is an
+reference, per step. The oracle (cfd_demo_jax.oracle.reference) is an
 independent scalar transcription of the reference discretization.
 
 Two layers:
@@ -26,16 +26,16 @@ Two layers:
 import numpy as np
 import pytest
 
-from cfd_demo_tpu import (Cylinder, Grid, InletProfile, PressureSolver,
+from cfd_demo_jax import (Cylinder, Grid, InletProfile, PressureSolver,
                           Semantics, SimulationParams, VelocityScheme,
                           make_scene, make_step, solver_options_for)
-from cfd_demo_tpu.oracle.reference import NumpyModel
+from cfd_demo_jax.oracle.reference import NumpyModel
 
 from conftest import l2
 
 
 def oracle_field(oracle, name):
-    """The oracle keeps the reference's (ny+1, nx) v shape; the TPU
+    """The oracle keeps the reference's (ny+1, nx) v shape; the device
     layout stores the implicit-zero top row separately (Grid.shape_v)."""
     f = getattr(oracle, name)
     if name == "v":
@@ -193,7 +193,7 @@ def test_cavity_parabolic_lid_matches_oracle():
     """The cavity's parabolic lid (profile applied along x, zero at
     the side walls) is implemented in both the device path and the
     oracle; fixed iteration schedule, per-field L2 <= 1e-5."""
-    from cfd_demo_tpu import FlowCase
+    from cfd_demo_jax import FlowCase
 
     grid = Grid(nx=24, ny=16, lx=1.5, ly=1.0)
     params = SimulationParams(dt=0.004, viscosity=1e-3,

@@ -6,9 +6,9 @@ compound through ~50 Jacobi iterations x up to 21 corrector rounds per
 step, so the bar scales with horizon)."""
 import numpy as np
 
-from cfd_demo_tpu import (Cylinder, Grid, Semantics, SimulationParams,
+from cfd_demo_jax import (Cylinder, Grid, Semantics, SimulationParams,
                           make_scene, make_step, solver_options_for)
-from cfd_demo_tpu.oracle.reference import NumpyModel
+from cfd_demo_jax.oracle.reference import NumpyModel
 
 from conftest import l2
 

@@ -10,7 +10,7 @@ import math
 import numpy as np
 import pytest
 
-from cfd_demo_tpu.mesh2d import (AABB, InvalidHole, NotEnoughVertices,
+from cfd_demo_jax.mesh2d import (AABB, InvalidHole, NotEnoughVertices,
                                  Polygon, Quad, QuadMesh, SelfIntersecting,
                                  quad_edge_intersections,
                                  segment_intersection, segments_intersect,
@@ -262,7 +262,7 @@ class TestQuadMesh:
 class TestFromPolygon:
     def test_from_polygon_matches_from_quadtree(self):
         import math
-        from cfd_demo_tpu.mesh2d import tesselate
+        from cfd_demo_jax.mesh2d import tesselate
         poly = Polygon.rect(0.0, 0.0, 30.0, 10.0)
         poly.add_hole(Polygon.regular((7.5, 5.0), 1.5, 4, math.pi / 4))
         fast = QuadMesh.from_polygon(poly, 0.5, 2.0)

@@ -8,7 +8,7 @@ import math
 import numpy as np
 from hypothesis import given, settings, strategies as st
 
-from cfd_demo_tpu.mesh2d import Polygon, QuadMesh, segments_intersect, tesselate
+from cfd_demo_jax.mesh2d import Polygon, QuadMesh, segments_intersect, tesselate
 
 pts = st.tuples(st.floats(-10, 10, allow_nan=False, width=32),
                 st.floats(-10, 10, allow_nan=False, width=32))

@@ -5,8 +5,8 @@ import time
 import numpy as np
 import pytest
 
-from cfd_demo_tpu.mesh2d import Polygon, QuadMesh, tesselate
-from cfd_demo_tpu.mesh2d import native
+from cfd_demo_jax.mesh2d import Polygon, QuadMesh, tesselate
+from cfd_demo_jax.mesh2d import native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no C++ toolchain / build failed")
@@ -82,7 +82,7 @@ def test_seg_intersect_parity_with_python(rng):
     sign is rounding-determined (both use the canonical evaluation
     order + the static error filter) -- and be invariant under
     endpoint/segment argument swaps."""
-    from cfd_demo_tpu.mesh2d.intersect import segments_intersect
+    from cfd_demo_jax.mesh2d.intersect import segments_intersect
 
     lib = native.load()
 

@@ -7,9 +7,9 @@ obstacle blocking.
 """
 import numpy as np
 
-from cfd_demo_tpu import (Cylinder, Grid, Semantics, SimulationParams,
+from cfd_demo_jax import (Cylinder, Grid, Semantics, SimulationParams,
                           make_run, make_scene, solver_options_for)
-from cfd_demo_tpu.ops.divergence import divergence
+from cfd_demo_jax.ops.divergence import divergence
 
 
 def channel_scene(obstacle=True, **opt_overrides):
@@ -79,7 +79,7 @@ def test_float64_pipeline():
     """State dtype is a parameter; the whole step runs in f64 too."""
     import jax
     import jax.numpy as jnp
-    from cfd_demo_tpu import (Cylinder, Grid, SimulationParams, Semantics,
+    from cfd_demo_jax import (Cylinder, Grid, SimulationParams, Semantics,
                               make_scene, make_step, solver_options_for)
     jax.config.update("jax_enable_x64", True)
     try:
@@ -99,7 +99,7 @@ def test_float64_pipeline():
 
 
 def test_multiple_obstacles():
-    from cfd_demo_tpu import (Box, Cylinder, Grid, SimulationParams,
+    from cfd_demo_jax import (Box, Cylinder, Grid, SimulationParams,
                               Semantics, make_scene, make_step,
                               solver_options_for)
     scene = make_scene(
@@ -136,8 +136,8 @@ def test_cavity_ghia_re100():
     benchmark profiles: 64^2, first-order upwind, 8000 fast-mode steps
     to steady state (residual ~3e-6). Max deviation ~0.04 at this
     resolution (0.02 at 128^2, docs/VALIDATION.md); tolerance 0.06."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (FlowCase, Semantics, SimulationParams,
+    import cfd_demo_jax as cfd
+    from cfd_demo_jax import (FlowCase, Semantics, SimulationParams,
                               cavity_grid, solver_options_for)
 
     n = 64
@@ -174,7 +174,7 @@ def test_poiseuille_analytic_profile():
     annihilates it wall-to-wall). At Re = 10 the flow develops within
     a couple of channel heights, so downstream columns must match that
     profile -- a closed-form check no golden file can drift from."""
-    from cfd_demo_tpu import InletProfile
+    from cfd_demo_jax import InletProfile
     ny, nx = 16, 32
     grid = Grid(nx=nx, ny=ny, lx=2.0, ly=1.0, obstacles=())
     params = SimulationParams(dt=0.002, viscosity=0.1,

@@ -3,15 +3,16 @@ multigrid with a divergence-calibrated exit -- a deliberate addition
 beyond the reference's solvers, for production projection quality.
 """
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
 
-from cfd_demo_tpu import (Cylinder, Grid, PressureSolver, Semantics,
+from cfd_demo_jax import (Cylinder, Grid, PressureSolver, Semantics,
                           SimulationParams, make_scene, make_run,
                           solver_options_for)
-from cfd_demo_tpu.ops.divergence import divergence
-from cfd_demo_tpu.ops.poisson import (_apply_pprime_bcs, _mg_residual,
+from cfd_demo_jax.ops.divergence import divergence
+from cfd_demo_jax.ops.poisson import (_apply_pprime_bcs, _mg_residual,
                                       multigrid_production)
 
 
@@ -159,7 +160,7 @@ def test_noise_floor_exit_beats_cycle_cap():
     ~eps * (denom * max|p| + max|rhs|), instead of burning the whole
     cycle cap for no accuracy (which is what every solve at 8192^2
     did: the floor sits above the calibrated tol there --
-    docs/PERF.md)."""
+    PERF.md)."""
     ny, nx = 96, 128
     dx = dy = 1.0 / nx
     rng = np.random.default_rng(5)
@@ -184,10 +185,10 @@ def test_aligned_contraction_beats_legacy():
     """The aligned cell-centered hierarchy (round-2 redesign,
     opts.mgp_scheme) contracts ~0.1-0.3/cycle where the legacy JS-kit
     vertex transfers stall at ~0.76 on even grids (the coarse boundary
-    lands one cell inside the domain -- docs/PERF.md): the same solve
+    lands one cell inside the domain -- PERF.md): the same solve
     to the same tolerance needs a small fraction of the cycles, on
     both BC families."""
-    from cfd_demo_tpu.ops.poisson import _apply_pprime_bcs_cavity
+    from cfd_demo_jax.ops.poisson import _apply_pprime_bcs_cavity
     ny, nx = 128, 128
     dx = dy = 1.0 / nx
     rng = np.random.default_rng(7)
@@ -216,7 +217,7 @@ def test_aligned_odd_and_anisotropic_sizes():
     """The per-axis odd-size rule (pad when (m+1)/2 is even, aggregate
     otherwise -- ops.poisson._cc_coarse_size) keeps contraction healthy
     on odd and anisotropic grids, where single-rule chains degrade
-    (fake-domain padding compounds geometrically, docs/PERF.md)."""
+    (fake-domain padding compounds geometrically, PERF.md)."""
     rng = np.random.default_rng(8)
     for ny, nx in ((131, 211), (97, 129), (129, 255), (126, 254)):
         dx, dy = 1.0 / nx, 1.0 / ny
@@ -237,8 +238,8 @@ def test_fdm_solves_interior_exactly():
     (east-Dirichlet) and cavity (all-Neumann, pseudo-inverse gauge)
     operators, and the correction padded back satisfies the full-array
     residual convention."""
-    from cfd_demo_tpu.ops.fdm import fdm_solve_interior
-    from cfd_demo_tpu.ops.poisson import _mgp_aligned_correction
+    from cfd_demo_jax.ops.fdm import fdm_solve_interior
+    from cfd_demo_jax.ops.poisson import _mgp_aligned_correction
     rng = np.random.default_rng(9)
     ny, nx = 40, 56
     dx, dy = 1.0 / nx, 1.0 / ny
@@ -252,7 +253,7 @@ def test_fdm_solves_interior_exactly():
         # residual of the folded system via the full-array convention:
         # boundary slaving == mirror/zero folds for these two BCs.
         bc = _apply_pprime_bcs if east_dirichlet else None
-        from cfd_demo_tpu.ops.poisson import _apply_pprime_bcs_cavity
+        from cfd_demo_jax.ops.poisson import _apply_pprime_bcs_cavity
         bc = bc or _apply_pprime_bcs_cavity
         p = bc(e_full)
         res = _mg_residual(p, r_full, dx, dy)
@@ -291,49 +292,6 @@ def test_fdm_solver_projects_exactly():
         results[PressureSolver.MG_PRODUCTION] * 1.05, results
 
 
-def test_fused_smooth_res_kernel_matches_xla():
-    """kernels.jacobi_pallas.jacobi_fused_k_res (interpret mode): the
-    smooth+residual launch of the aligned MGP cycle must reproduce
-    _mgp_smooth + _mg_residual (values to float noise; max|r| over the
-    interior)."""
-    from cfd_demo_tpu.ops.poisson import (_apply_pprime_bcs_cavity,
-                                          _mgp_smooth)
-    from cfd_demo_tpu.kernels.jacobi_pallas import jacobi_fused_k_res
-    rng = np.random.default_rng(11)
-    for shape, cavity in (((64, 96), False), ((64, 64), True)):
-        ny, nx = shape
-        dx, dy = 1.0 / nx, 1.0 / ny
-        bc = _apply_pprime_bcs_cavity if cavity else _apply_pprime_bcs
-        pp = bc(jnp.asarray(0.1 * rng.standard_normal(shape), jnp.float32))
-        rhs = jnp.asarray(rng.standard_normal(shape), jnp.float32)
-        p_ref = _mgp_smooth(pp, rhs, dx, dy, 0.75, 3, bc)
-        r_ref = _mg_residual(p_ref, rhs, dx, dy)
-        p_got, r_got, mr = jacobi_fused_k_res(pp, rhs, dx, dy, 0.75, 3,
-                                              interpret=True,
-                                              cavity=cavity)
-        np.testing.assert_allclose(np.asarray(p_ref), np.asarray(p_got),
-                                   rtol=0, atol=1e-6)
-        # r's evaluation cancels O(denom*|p|) intermediates down to
-        # O(r); multiplier-vs-divide and fma ordering differences are
-        # relative to the INTERMEDIATES, so tolerance follows the f32
-        # floor formula, not |r|.
-        tol = 30 * np.finfo(np.float32).eps * (
-            (2 / dx ** 2 + 2 / dy ** 2) * float(jnp.max(jnp.abs(p_ref)))
-            + float(jnp.max(jnp.abs(rhs))))
-        np.testing.assert_allclose(np.asarray(r_ref), np.asarray(r_got),
-                                   rtol=0, atol=tol)
-        assert np.isclose(float(mr), float(jnp.max(jnp.abs(r_ref))),
-                          rtol=1e-3, atol=tol)
-        # emit_res=False (post-smooth position): same p and metric,
-        # no residual array.
-        p2, r2, mr2 = jacobi_fused_k_res(pp, rhs, dx, dy, 0.75, 3,
-                                         interpret=True, cavity=cavity,
-                                         emit_res=False)
-        assert r2 is None
-        np.testing.assert_array_equal(np.asarray(p_got), np.asarray(p2))
-        assert float(mr2) == float(mr)
-
-
 def test_fdm_large_size_low_modes():
     """Regression (round-2 review): eigenvalues must be computed as
     4 sin^2(theta/2), not 2 - 2 cos(theta) -- the cos form cancels
@@ -342,7 +300,7 @@ def test_fdm_large_size_low_modes():
     width 2046/4094: O(1) relative error on smooth rhs). A smooth
     low-mode rhs at 2046^2 must solve to within a few multiples of
     the f32 residual-evaluation floor eps*(denom*max|p| + max|rhs|)."""
-    from cfd_demo_tpu.ops.fdm import _dct_basis, fdm_solve_interior
+    from cfd_demo_jax.ops.fdm import _dct_basis, fdm_solve_interior
     _, lam = jax.jit(lambda: _dct_basis(8190, True))()
     assert float(lam[0]) > 0.0
     m, n = 2046, 2048
@@ -370,7 +328,7 @@ def test_fdm_solver_vmap_and_grad():
     by AD) without special casing."""
     import dataclasses
 
-    from cfd_demo_tpu import make_step
+    from cfd_demo_jax import make_step
     grid = Grid(nx=48, ny=32, lx=3.0, ly=2.0,
                 obstacles=(Cylinder(1.0, 1.0, 0.3),))
     params = SimulationParams(dt=0.003, viscosity=1e-3,
@@ -400,8 +358,7 @@ def test_fdm_solver_vmap_and_grad():
 
 def test_legacy_scheme_still_selectable():
     """mgp_scheme='legacy' keeps the JS-kit vertex hierarchy available
-    (and on TPU the whole-cycle Pallas kernels) -- both schemes solve
-    the same system to their exits."""
+    -- both schemes solve the same system to their exits."""
     ny, nx = 64, 64
     dx = dy = 1.0 / nx
     rng = np.random.default_rng(10)
@@ -443,39 +400,6 @@ def test_noise_floor_exit_does_not_fire_mid_convergence():
     assert float(err_a) <= tol_r
 
 
-def test_fused_res_kernel_k_multiple_of_8_seams():
-    """Regression (round-2 review): jacobi_fused_k_res provisioned its
-    window halo for k sweeps only, but the fused residual reads one
-    ring PAST the k-deep wrap contamination -- at k % 8 == 0 (zero
-    slack in the 8-row-aligned halo) every interior block seam's
-    residual row read a once-contaminated neighbor. k=8/16 on a
-    multi-block grid must match the XLA smooth+residual pair on EVERY
-    row (per-row check so one bad seam row cannot hide in a global
-    max tolerance)."""
-    from cfd_demo_tpu.ops.poisson import _mgp_smooth
-    from cfd_demo_tpu.kernels.jacobi_pallas import jacobi_fused_k_res
-    rng = np.random.default_rng(21)
-    ny, nx = 384, 128
-    dx, dy = 1.0 / nx, 1.0 / ny
-    pp = _apply_pprime_bcs(
-        jnp.asarray(0.1 * rng.standard_normal((ny, nx)), jnp.float32))
-    rhs = jnp.asarray(rng.standard_normal((ny, nx)), jnp.float32)
-    for k in (8, 16):
-        p_ref = _mgp_smooth(pp, rhs, dx, dy, 0.75, k, _apply_pprime_bcs)
-        r_ref = _mg_residual(p_ref, rhs, dx, dy)
-        p_got, r_got, mr = jacobi_fused_k_res(pp, rhs, dx, dy, 0.75, k,
-                                              interpret=True)
-        np.testing.assert_allclose(np.asarray(p_ref), np.asarray(p_got),
-                                   rtol=0, atol=1e-5)
-        tol = 30 * np.finfo(np.float32).eps * (
-            (2 / dx ** 2 + 2 / dy ** 2) * float(jnp.max(jnp.abs(p_ref)))
-            + float(jnp.max(jnp.abs(rhs))))
-        err_rows = np.abs(np.asarray(r_ref) - np.asarray(r_got)).max(axis=1)
-        assert err_rows.max() <= tol, (k, np.argmax(err_rows))
-        assert np.isclose(float(mr), float(jnp.max(jnp.abs(r_ref))),
-                          rtol=1e-3, atol=tol)
-
-
 def test_aligned_high_aspect_grid_traces_and_solves():
     """Regression (round-2 review): on extreme-aspect grids the
     aligned hierarchy coarsened the short axis to width 0 while the
@@ -503,7 +427,7 @@ def test_fdm_basis_residues_no_int32_overflow():
     from m = 23171 and silently corrupts the eigenbasis. The
     limb-split mulmod must agree with exact integer arithmetic past
     the wrap point."""
-    from cfd_demo_tpu.ops.fdm import _mulmod_i32
+    from cfd_demo_jax.ops.fdm import _mulmod_i32
     m = 30000
     period = 2 * (4 * m + 2)
     idx = np.array([0, 1, 12345, 23170, 23171, 29999], np.int64)
@@ -515,19 +439,6 @@ def test_fdm_basis_residues_no_int32_overflow():
     np.testing.assert_array_equal(np.asarray(got), exact)
 
 
-def test_fused_smoother_gate_excludes_differentiable(monkeypatch):
-    """The fused MGP smoother kernels have no autodiff rules; the
-    shared routing gate must keep differentiable mode on the XLA
-    sweeps even where every other condition holds (round-2 review:
-    the aligned cycle's copy of the gate lacked the check)."""
-    from cfd_demo_tpu.ops import poisson as P
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    p = jnp.zeros((2048, 1024), jnp.float32)
-    assert P._fused_smoother_ok(p, _opts(), 3)
-    assert not P._fused_smoother_ok(p, _opts(differentiable=True), 3)
-    assert not P._fused_smoother_ok(p, _opts(), 0)
-
-
 def test_fdm_width_one_axis_operator():
     """Regression (round-2 review): _t1d's end folds overwrote the
     diagonal instead of composing, so the m = 1 east-Dirichlet operator
@@ -535,8 +446,8 @@ def test_fdm_width_one_axis_operator():
     a saturated-axis hierarchy then removed only ~half the residual.
     The direct solve on (N, 1) and (1, N) levels must satisfy the SAME
     folded operator the aligned levels smooth (_cc_residual)."""
-    from cfd_demo_tpu.ops.fdm import _t1d, fdm_solve_interior
-    from cfd_demo_tpu.ops.poisson import _cc_residual
+    from cfd_demo_jax.ops.fdm import _t1d, fdm_solve_interior
+    from cfd_demo_jax.ops.poisson import _cc_residual
     # unit values of the composed folds
     h, d = 0.32, 0.9
     np.testing.assert_allclose(_t1d(1, h, True, d), [[(h / d) / h**2]])
@@ -553,6 +464,31 @@ def test_fdm_width_one_axis_operator():
         assert float(jnp.max(jnp.abs(res))) <= floor, shape
 
 
+@pytest.mark.parametrize("east_dirichlet,d_wall", [
+    (True, 0.25),    # closed-form Dirichlet basis (d == h)
+    (False, 0.25),   # closed-form Neumann basis (cavity gauge)
+    (True, 0.6),     # numpy-eigh constants (coarse-level fold)
+])
+def test_fdm_solve_runs_in_float64(east_dirichlet, d_wall):
+    """The direct solve follows its operand's dtype: under x64 a float64
+    rhs gets float64 bases and products, and the solution satisfies the
+    folded operator to float64 round-off (the float64 reference runs of
+    the solver rely on this)."""
+    from cfd_demo_jax.ops.fdm import fdm_solve_interior
+    from cfd_demo_jax.ops.poisson import _cc_residual
+    rng = np.random.default_rng(5)
+    r = rng.standard_normal((24, 40))
+    if not east_dirichlet:
+        r -= r.mean()                # the all-Neumann range
+    with jax.enable_x64(True):
+        e = jax.jit(lambda rr: fdm_solve_interior(
+            rr, 0.25, 0.3, east_dirichlet, d_wall))(jnp.asarray(r))
+        assert e.dtype == jnp.float64
+        res = _cc_residual(e, jnp.asarray(r), 0.25, 0.3, east_dirichlet,
+                           d_wall)
+        assert float(jnp.max(jnp.abs(res))) < 1e-11
+
+
 def test_cc_vcycle_saturated_axis_keeps_metric():
     """Regression (round-2 review): once an axis saturates at width 1
     (identity transfers), the recursion kept doubling its cell size and
@@ -560,7 +496,7 @@ def test_cc_vcycle_saturated_axis_keeps_metric():
     level. One V-cycle on a saturated-axis hierarchy must contract the
     residual strongly (the coarse levels solve the SAME 1-D-in-x
     operator the fine level smooths)."""
-    from cfd_demo_tpu.ops.poisson import _cc_residual, _cc_vcycle
+    from cfd_demo_jax.ops.poisson import _cc_residual, _cc_vcycle
     rng = np.random.default_rng(23)
     rhs = jnp.asarray(rng.standard_normal((256, 1)), jnp.float32)
     dx = dy = 1.0 / 256.0
@@ -569,108 +505,3 @@ def test_cc_vcycle_saturated_axis_keeps_metric():
     res = _cc_residual(e, rhs, dx, dy, True, dx)
     contraction = float(jnp.max(jnp.abs(res)) / jnp.max(jnp.abs(rhs)))
     assert contraction < 0.05, contraction
-
-
-def test_mgp_smooth_auto_falls_back_on_infeasible_blocks(monkeypatch):
-    """Regression (round-2 review): _mgp_smooth_auto must catch
-    ValueError from jacobi_fused_k (gate-passing but block-infeasible
-    geometry) and fall back to the XLA sweeps, exactly like its sibling
-    _mgp_smooth_res_auto."""
-    from cfd_demo_tpu.kernels import jacobi_pallas as K
-    from cfd_demo_tpu.ops import poisson as P
-
-    monkeypatch.setattr(P, "_fused_smoother_ok", lambda *a: True)
-
-    def boom(*a, **k):
-        raise ValueError("no valid block size")
-
-    monkeypatch.setattr(K, "jacobi_fused_k", boom)
-    rng = np.random.default_rng(5)
-    p = jnp.asarray(rng.standard_normal((16, 24)), jnp.float32)
-    rhs = jnp.asarray(rng.standard_normal((16, 24)), jnp.float32)
-    opts = _opts()
-    got = P._mgp_smooth_auto(p, rhs, 0.1, 0.1, 0.75, 3,
-                             P._apply_pprime_bcs, opts)
-    want = P._mgp_smooth(p, rhs, 0.1, 0.1, 0.75, 3, P._apply_pprime_bcs)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_fused_restrict_kernel_matches_xla():
-    """kernels.jacobi_pallas.jacobi_fused_k_restrict (interpret mode,
-    round 4): the smooth + restricted-residual launch must reproduce
-    _mgp_smooth followed by _cc_restrict of the interior residual --
-    the strided slice m[:ncy, 1::2][:, :ncx] equals the XLA coarse
-    level to the residual-cancellation floor, and p' matches the plain
-    fused launch bitwise-close."""
-    from cfd_demo_tpu.ops.poisson import (_apply_pprime_bcs_cavity,
-                                          _cc_restrict, _mgp_smooth)
-    from cfd_demo_tpu.kernels.jacobi_pallas import jacobi_fused_k_restrict
-    rng = np.random.default_rng(19)
-    for shape, cavity in (((64, 96), False), ((64, 64), True),
-                          ((48, 150), False)):
-        ny, nx = shape
-        dx, dy = 1.0 / nx, 1.0 / ny
-        bc = _apply_pprime_bcs_cavity if cavity else _apply_pprime_bcs
-        pp = bc(jnp.asarray(0.1 * rng.standard_normal(shape), jnp.float32))
-        rhs = jnp.asarray(rng.standard_normal(shape), jnp.float32)
-        p_ref = _mgp_smooth(pp, rhs, dx, dy, 0.75, 3, bc)
-        r_ref = _mg_residual(p_ref, rhs, dx, dy)
-        rc_ref = _cc_restrict(r_ref[1:ny - 1, 1:nx - 1])
-        p_got, m, mr = jacobi_fused_k_restrict(pp, rhs, dx, dy, 0.75, 3,
-                                               interpret=True,
-                                               cavity=cavity)
-        np.testing.assert_allclose(np.asarray(p_ref), np.asarray(p_got),
-                                   rtol=0, atol=1e-6)
-        ncy, ncx = (ny - 2) // 2, (nx - 2) // 2
-        rc_got = np.asarray(m)[:ncy, 1::2][:, :ncx]
-        assert rc_got.shape == rc_ref.shape
-        tol = 30 * np.finfo(np.float32).eps * (
-            (2 / dx ** 2 + 2 / dy ** 2) * float(jnp.max(jnp.abs(p_ref)))
-            + float(jnp.max(jnp.abs(rhs))))
-        np.testing.assert_allclose(np.asarray(rc_ref), rc_got,
-                                   rtol=0, atol=tol)
-        assert np.isclose(float(mr), float(jnp.max(jnp.abs(r_ref))),
-                          rtol=1e-3, atol=tol)
-
-
-def test_fused_corr_kernel_matches_xla():
-    """kernels.jacobi_pallas.jacobi_fused_k_corr (interpret mode,
-    round 4): y-prolong of the half-height x-prolonged correction +
-    add + k damped BC'd sweeps in one launch must reproduce
-    bc(p + pad(_cc_prolong(e_c), 1)) followed by _mgp_smooth, with the
-    exit metric matching max|residual|."""
-    from cfd_demo_tpu.ops.poisson import (_apply_pprime_bcs_cavity,
-                                          _cc_prolong, _cc_prolong_x,
-                                          _mgp_smooth)
-    from cfd_demo_tpu.kernels.jacobi_pallas import jacobi_fused_k_corr
-    rng = np.random.default_rng(23)
-    for shape, cavity in (((64, 96), False), ((64, 64), True),
-                          ((80, 150), False)):
-        ny, nx = shape
-        dx, dy = 1.0 / nx, 1.0 / ny
-        bc = _apply_pprime_bcs_cavity if cavity else _apply_pprime_bcs
-        ed = not cavity
-        pp = bc(jnp.asarray(0.1 * rng.standard_normal(shape), jnp.float32))
-        rhs = jnp.asarray(rng.standard_normal(shape), jnp.float32)
-        ncy, ncx = (ny - 2) // 2, (nx - 2) // 2
-        e_c = jnp.asarray(0.05 * rng.standard_normal((ncy, ncx)),
-                          jnp.float32)
-        # XLA reference: full prolong + pad + add + bc + smooth
-        e_int = _cc_prolong(e_c, ny - 2, nx - 2, ed)
-        p_ref = bc(pp + jnp.pad(e_int, 1))
-        p_ref = _mgp_smooth(p_ref, rhs, dx, dy, 0.75, 3, bc)
-        r_ref = _mg_residual(p_ref, rhs, dx, dy)
-        # fused: half-height x-prolonged intermediate into the kernel
-        row = _cc_prolong_x(e_c, nx - 2, ed)
-        rowp = jnp.pad(row, ((0, ny // 2 - ncy), (1, 0)))
-        p_got, err, pmax = jacobi_fused_k_corr(pp, rhs, rowp, dx, dy,
-                                               0.75, 3, interpret=True,
-                                               cavity=cavity)
-        assert float(pmax) == float(jnp.max(jnp.abs(p_got)))
-        np.testing.assert_allclose(np.asarray(p_ref), np.asarray(p_got),
-                                   rtol=0, atol=1e-6)
-        tol = 30 * np.finfo(np.float32).eps * (
-            (2 / dx ** 2 + 2 / dy ** 2) * float(jnp.max(jnp.abs(p_ref)))
-            + float(jnp.max(jnp.abs(rhs))))
-        assert np.isclose(float(err), float(jnp.max(jnp.abs(r_ref))),
-                          rtol=1e-3, atol=tol)

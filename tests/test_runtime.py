@@ -5,16 +5,16 @@ import time
 
 import numpy as np
 
-from cfd_demo_tpu import (Cylinder, Grid, Semantics, SimulationParams,
+from cfd_demo_jax import (Cylinder, Grid, Semantics, SimulationParams,
                           VelocityScheme, make_scene, make_step,
                           solver_options_for)
-from cfd_demo_tpu.render.colormap import (VisualizationMode,
+from cfd_demo_jax.render.colormap import (VisualizationMode,
                                           boundary_overlay, colormap_rgb,
                                           legend_strip, render_field)
-from cfd_demo_tpu.render.png import write_png
-from cfd_demo_tpu.runtime import checkpoint
-from cfd_demo_tpu.runtime.driver import run
-from cfd_demo_tpu.utils.raster import (rasterize_mesh, rasterize_polygon,
+from cfd_demo_jax.render.png import write_png
+from cfd_demo_jax.runtime import checkpoint
+from cfd_demo_jax.runtime.driver import run
+from cfd_demo_jax.utils.raster import (rasterize_mesh, rasterize_polygon,
                                        rasterize_quadtree)
 
 
@@ -69,7 +69,7 @@ def test_driver_chunked_step_equals_per_step():
     """steps_per_loop=N fuses N steps into one dispatch (lax.scan);
     the states and the reported diagnostics must equal N single-step
     dispatches exactly -- with tracers and forces fused in."""
-    from cfd_demo_tpu.runtime.driver import SimulationHandle
+    from cfd_demo_jax.runtime.driver import SimulationHandle
     sc = scene()
     h1 = SimulationHandle(sc, tracers=True, forces=True)
     h3 = SimulationHandle(sc, tracers=True, forces=True,
@@ -157,7 +157,7 @@ def test_colormap_constant_field():
 
 def test_rasterizers():
     import math
-    from cfd_demo_tpu.mesh2d import Polygon, QuadMesh, tesselate
+    from cfd_demo_jax.mesh2d import Polygon, QuadMesh, tesselate
     poly = Polygon.rect(0, 0, 30, 10)
     poly.add_hole(Polygon.regular((7.5, 5.0), 1.5, 4, math.pi / 4))
     img = rasterize_polygon(poly, 300, 100)
@@ -177,10 +177,10 @@ def test_trace_utilities():
     """runtime/trace.py: PhaseTimer spans, phase_timings device
     diagnostics, and the jax.profiler trace context."""
     import tempfile
-    from cfd_demo_tpu.runtime.trace import (PhaseTimer, phase_timings,
+    from cfd_demo_jax.runtime.trace import (PhaseTimer, phase_timings,
                                             profile_trace)
 
-    import cfd_demo_tpu as cfd
+    import cfd_demo_jax as cfd
 
     t = PhaseTimer()
     with t.span("a"):
@@ -363,7 +363,7 @@ def test_driver_set_options_semantics_switch():
     handle. The rebuild compiles in the background and swaps when
     ready; fields carry over with the JS-only u_prev/v_prev leaves
     added (and dropped on the way back)."""
-    from cfd_demo_tpu import Semantics, solver_options_for
+    from cfd_demo_jax import Semantics, solver_options_for
 
     sc = scene()
     h = run(sc)
@@ -403,7 +403,7 @@ def test_driver_background_rebuild_does_not_block_stream():
     """An enum change must not stall the control loop: steps keep
     landing between the set_params call and the swap (the old
     configuration streams while the new one compiles)."""
-    from cfd_demo_tpu import SimulationParams, VelocityScheme
+    from cfd_demo_jax import SimulationParams, VelocityScheme
 
     sc = scene()
     h = run(sc)

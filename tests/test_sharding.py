@@ -1,7 +1,7 @@
 """Multi-device sharding tests on the 8-device virtual CPU mesh.
 
 SURVEY.md section 4d: sharded-vs-unsharded equality validates the
-GSPMD halo exchanges without a TPU pod.
+GSPMD halo exchanges without a multi-GPU host.
 """
 import numpy as np
 
@@ -11,12 +11,12 @@ import pytest as _pytest
 
 pytestmark = _pytest.mark.skipif(
     len(jax.devices()) < 8,
-    reason="needs the 8-device virtual CPU mesh (CFD_TEST_PLATFORM=cpu)")
+    reason="needs the 8-device virtual CPU mesh (tests/conftest.py)")
 
 
-from cfd_demo_tpu import (Cylinder, Grid, Semantics, SimulationParams,
+from cfd_demo_jax import (Cylinder, Grid, Semantics, SimulationParams,
                           make_scene, make_step, solver_options_for)
-from cfd_demo_tpu.shard.mesh import make_mesh, make_sharded_step, shard_state
+from cfd_demo_jax.shard.mesh import make_mesh, make_sharded_step, shard_state
 
 
 def test_sharded_step_matches_single_device():
@@ -49,7 +49,7 @@ def test_sharded_step_matches_single_device():
 def test_sharded_second_order_quick():
     """2-wide stencils (SECOND/QUICK) need 2-row halos; GSPMD must get
     them right across shard boundaries."""
-    from cfd_demo_tpu import VelocityScheme
+    from cfd_demo_jax import VelocityScheme
     grid = Grid(nx=48, ny=64, lx=4.0, ly=4.0)
     mesh = make_mesh()
     for scheme in (VelocityScheme.SECOND, VelocityScheme.QUICK):
@@ -74,7 +74,7 @@ def test_sharded_second_order_quick():
 def test_sharded_multigrid_step():
     """The multigrid solver (restrict/prolong now gather-free) must
     also match single-device under GSPMD row sharding."""
-    from cfd_demo_tpu import PressureSolver
+    from cfd_demo_jax import PressureSolver
     grid = Grid(nx=48, ny=64, lx=4.0, ly=4.0)
     params = SimulationParams(dt=0.002, viscosity=1e-4,
                               pressure_solver=PressureSolver.MULTIGRID)
@@ -102,7 +102,7 @@ def test_sharded_mg_production_step():
     interior-masked residual, restrict/prolong, bc selects) is built
     from shifted views + iota masks, and the exit reduction is a
     global max."""
-    from cfd_demo_tpu import PressureSolver
+    from cfd_demo_jax import PressureSolver
     grid = Grid(nx=48, ny=64, lx=4.0, ly=4.0,
                 obstacles=(Cylinder(1.0, 2.0, 0.4),))
     params = SimulationParams(dt=0.002, viscosity=1e-4,
@@ -140,7 +140,7 @@ def test_vmap_ensemble():
     opts = solver_options_for(Semantics.RUST, ramp_up_steps=5,
                               early_exit=False)
     scene = make_scene(grid, params, opts)
-    from cfd_demo_tpu.solver.piso import step_fn
+    from cfd_demo_jax.solver.piso import step_fn
     from functools import partial
     import dataclasses
 
@@ -200,17 +200,16 @@ def test_batch_sharded_ensemble():
     import dataclasses
     import jax.numpy as jnp
     from functools import partial
-    from cfd_demo_tpu.shard.mesh import (make_batch_sharded_step, make_mesh,
+    from cfd_demo_jax.shard.mesh import (make_batch_sharded_step, make_mesh,
                                          shard_batch)
-    from cfd_demo_tpu.solver.piso import step_fn
+    from cfd_demo_jax.solver.piso import step_fn
 
     grid = Grid(nx=32, ny=24, lx=2.0, ly=1.5,
                 obstacles=(Cylinder(0.5, 0.75, 0.2),))
     scene = make_scene(
         grid, SimulationParams(dt=0.002, viscosity=1e-4),
         solver_options_for(Semantics.RUST, ramp_up_steps=5,
-                           early_exit=False, pressure_impl="jnp",
-                           substep_impl="jnp"))
+                           early_exit=False))
     B = 8
     base = scene.init_state()
     batched = jax.tree.map(
@@ -243,16 +242,15 @@ def test_batch_by_rows_2d_mesh():
     import dataclasses
     import jax.numpy as jnp
     from functools import partial
-    from cfd_demo_tpu.shard.mesh import make_mesh2d, shard_batch_rows
-    from cfd_demo_tpu.solver.piso import step_fn
+    from cfd_demo_jax.shard.mesh import make_mesh2d, shard_batch_rows
+    from cfd_demo_jax.solver.piso import step_fn
 
     grid = Grid(nx=32, ny=32, lx=2.0, ly=2.0,
                 obstacles=(Cylinder(0.5, 1.0, 0.2),))
     scene = make_scene(
         grid, SimulationParams(dt=0.002, viscosity=1e-4),
         solver_options_for(Semantics.RUST, ramp_up_steps=5,
-                           early_exit=False, pressure_impl="jnp",
-                           substep_impl="jnp"))
+                           early_exit=False))
     B = 4
     base = scene.init_state()
     batched = jax.tree.map(
@@ -282,7 +280,7 @@ def test_vmap_js_semantics_per_element_exact():
     import dataclasses
     import jax.numpy as jnp
     from functools import partial
-    from cfd_demo_tpu.solver.piso import step_fn
+    from cfd_demo_jax.solver.piso import step_fn
 
     grid = Grid(nx=32, ny=24, lx=2.0, ly=1.5,
                 obstacles=(Cylinder(0.5, 0.75, 0.2),))
@@ -318,7 +316,7 @@ def test_spatial_2d_mesh_matches_single_device():
     (make_mesh2d_spatial). u's odd last column is split off at the jit
     boundary (Split2D adapter), so every boundary array divides evenly;
     fields must equal the single-device step bitwise."""
-    from cfd_demo_tpu.shard.mesh import (join_u, make_mesh2d_spatial,
+    from cfd_demo_jax.shard.mesh import (join_u, make_mesh2d_spatial,
                                          make_sharded_step_2d,
                                          shard_state_2d)
     grid = Grid(nx=64, ny=64, lx=4.0, ly=4.0,
@@ -349,7 +347,7 @@ def test_spatial_2d_mesh_collective_pattern():
     """2-D spatial tier communication: column+row halo permutes and
     scalar reductions; no all-to-all, and the only gathers are the
     one-lane u_last re-joins (bounded small count)."""
-    from cfd_demo_tpu.shard.mesh import (make_mesh2d_spatial,
+    from cfd_demo_jax.shard.mesh import (make_mesh2d_spatial,
                                          make_sharded_step_2d,
                                          shard_state_2d)
     grid = Grid(nx=64, ny=64, lx=4.0, ly=4.0,
@@ -368,10 +366,10 @@ def test_spatial_2d_mesh_collective_pattern():
 def test_spatial_2d_mesh_js_semantics():
     """JS semantics (u_prev extrapolation buffers also carry a split
     last column) through the 2-D spatial tier, scan-fused."""
-    from cfd_demo_tpu.shard.mesh import (join_u, make_mesh2d_spatial,
+    from cfd_demo_jax.shard.mesh import (join_u, make_mesh2d_spatial,
                                          make_sharded_step_2d,
                                          shard_state_2d)
-    from cfd_demo_tpu import make_run
+    from cfd_demo_jax import make_run
     grid = Grid(nx=64, ny=32, lx=4.0, ly=2.0)
     params = SimulationParams(dt=0.002, viscosity=1e-4)
     opts = solver_options_for(Semantics.JS, ramp_up_steps=5,
@@ -397,8 +395,8 @@ def test_elastic_reshard_resume_npz():
     the reference, which has no persistence at all)."""
     import os
     import tempfile
-    from cfd_demo_tpu.runtime import checkpoint
-    from cfd_demo_tpu.shard.mesh import (join_u, make_mesh2d_spatial,
+    from cfd_demo_jax.runtime import checkpoint
+    from cfd_demo_jax.shard.mesh import (join_u, make_mesh2d_spatial,
                                          make_sharded_step_2d,
                                          shard_state_2d)
 
@@ -459,7 +457,7 @@ def test_orbax_elastic_restore_into_sharding():
     matches the unsharded continuation."""
     import os
     import tempfile
-    from cfd_demo_tpu.runtime import checkpoint
+    from cfd_demo_jax.runtime import checkpoint
     from jax.sharding import PartitionSpec as P
 
     grid = Grid(nx=64, ny=64, lx=4.0, ly=4.0,

@@ -1,4 +1,4 @@
-"""Explicit shard_map halo-exchange tier vs the single-device solver."""
+"""shard_map halo exchanges and solvers vs the single-device solver."""
 import numpy as np
 import pytest
 
@@ -8,14 +8,14 @@ import pytest as _pytest
 
 pytestmark = _pytest.mark.skipif(
     len(jax.devices()) < 8,
-    reason="needs the 8-device virtual CPU mesh (CFD_TEST_PLATFORM=cpu)")
+    reason="needs the 8-device virtual CPU mesh (tests/conftest.py)")
 
 import jax.numpy as jnp
 
-from cfd_demo_tpu.ops.poisson import jacobi
-from cfd_demo_tpu.shard.halo import exchange_rows
-from cfd_demo_tpu.shard.jacobi_shmap import jacobi_shmap
-from cfd_demo_tpu.shard.mesh import make_mesh
+from cfd_demo_jax.ops.poisson import jacobi
+from cfd_demo_jax.shard.halo import exchange_rows
+from cfd_demo_jax.shard.jacobi_shmap import jacobi_shmap
+from cfd_demo_jax.shard.mesh import make_mesh
 
 
 def test_exchange_rows():
@@ -63,266 +63,18 @@ def test_jacobi_shmap_matches_single_device(k):
     assert np.isclose(float(err_ref), float(err_got), rtol=1e-4, atol=1e-7)
 
 
-@pytest.mark.parametrize("k", [4, 8])
-def test_jacobi_pallas_shmap_matches_single_device(k):
-    """Multi-chip fused-Pallas Jacobi (interpret mode on the CPU mesh)
-    must match the single-device solver."""
-    from cfd_demo_tpu.shard.jacobi_shmap import jacobi_pallas_shmap
-    from cfd_demo_tpu.ops.poisson import _apply_pprime_bcs
-    rng = np.random.default_rng(0)
-    ny = nx = 64
-    dx = dy = 1.0 / nx
-    # The fused kernels fold the boundary reads (documented
-    # BC-consistent-input precondition, always true in the solver).
-    pp = _apply_pprime_bcs(
-        jnp.asarray(rng.standard_normal((ny, nx)) * 0.1, jnp.float32))
-    rhs = jnp.asarray(rng.standard_normal((ny, nx)), jnp.float32)
-    iters = 16
-    ref, err_ref, _ = jax.jit(
-        lambda p, r: jacobi(p, r, dx, dy, 0.75, 0.0, iters,
-                            early_exit=False))(pp, rhs)
-    mesh = make_mesh()
-    got, err_got = jax.jit(
-        lambda p, r: jacobi_pallas_shmap(p, r, mesh, dx, dy, 0.75, iters,
-                                         k=k, interpret=True))(pp, rhs)
-    np.testing.assert_allclose(np.asarray(ref), np.asarray(got),
-                               rtol=0, atol=1e-6)
-    assert np.isclose(float(err_ref), float(err_got), rtol=1e-4, atol=1e-7)
-
-
-def test_step_shmap_matches_single_device():
-    """The fully explicit multi-chip step (shard_map + fused Pallas
-    kernels in interpret mode + ppermute halos) must reproduce the
-    single-device step: fields bitwise-close, scalars equal."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, Semantics, SimulationParams,
-                              solver_options_for)
-    from cfd_demo_tpu.shard.step_shmap import make_run_shmap
-
-    grid = Grid(nx=96, ny=128, lx=3.0, ly=4.0,
-                obstacles=(Cylinder(0.8, 2.0, 0.3),))
-    params = SimulationParams(dt=0.002, viscosity=1e-4)
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=5, jacobi_tol=0.0, jacobi_iters=20,
-        outer_corrector_rounds=0, early_exit=False, pressure_impl="jnp",
-        substep_impl="jnp", pallas_fuse_k=10)
-    scene = cfd.make_scene(grid, params, opts)
-
-    ref_state, ref_diags = cfd.make_run(scene, 5, donate=False)(
-        scene.init_state())
-
-    mesh = make_mesh()
-    run = make_run_shmap(scene, mesh, 5, interpret=True)
-    got_state, got_diags = run(scene.init_state())
-
-    for f in ("u", "v", "p", "p_prime"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)), rtol=0, atol=1e-6,
-            err_msg=f)
-    for f in ("res_u", "res_v", "res_p", "dt", "t"):
-        assert np.isclose(float(getattr(ref_state, f)),
-                          float(getattr(got_state, f)),
-                          rtol=1e-5, atol=1e-8), f
-    np.testing.assert_allclose(np.asarray(ref_diags.res_p),
-                               np.asarray(got_diags.res_p),
-                               rtol=1e-5, atol=1e-8)
-
-
-def test_step_shmap_cavity():
-    """Cavity flow case through the explicit multi-chip step."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (FlowCase, Semantics, SimulationParams,
-                              cavity_grid, solver_options_for)
-    from cfd_demo_tpu.shard.step_shmap import make_run_shmap
-
-    grid = cavity_grid(128)
-    params = SimulationParams(dt=0.002, viscosity=1e-3,
-                              flow_case=FlowCase.CAVITY)
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=5, jacobi_tol=0.0, jacobi_iters=20,
-        outer_corrector_rounds=0, early_exit=False, pressure_impl="jnp",
-        substep_impl="jnp", pallas_fuse_k=10)
-    scene = cfd.make_scene(grid, params, opts)
-
-    ref_state, _ = cfd.make_run(scene, 5, donate=False)(scene.init_state())
-    mesh = make_mesh()
-    got_state, _ = make_run_shmap(scene, mesh, 5, interpret=True)(
-        scene.init_state())
-    for f in ("u", "v", "p"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)), rtol=0, atol=1e-6,
-            err_msg=f)
-
-
-@pytest.mark.parametrize("tol", [1e-3, 1e-2])
-def test_jacobi_pallas_shmap_early_exit(tol):
-    """Multi-chip K-granularity early exit must match the single-device
-    fused kernel's (kernels.jacobi_pallas.jacobi_pallas): same launch
-    count, same fields."""
-    from cfd_demo_tpu.kernels.jacobi_pallas import jacobi_pallas
-    from cfd_demo_tpu.ops.poisson import _apply_pprime_bcs
-    from cfd_demo_tpu.shard.jacobi_shmap import jacobi_pallas_shmap
-    rng = np.random.default_rng(1)
-    ny = nx = 64
-    dx = dy = 1.0 / nx
-    pp = _apply_pprime_bcs(
-        jnp.asarray(rng.standard_normal((ny, nx)) * 0.1, jnp.float32))
-    rhs = jnp.asarray(rng.standard_normal((ny, nx)), jnp.float32)
-    ref, err_ref, _ = jax.jit(
-        lambda p, r: jacobi_pallas(p, r, dx, dy, 0.75, tol, 48, k=8,
-                                   early_exit=True, interpret=True))(pp, rhs)
-    mesh = make_mesh()
-    got, err_got = jax.jit(
-        lambda p, r: jacobi_pallas_shmap(p, r, mesh, dx, dy, 0.75, 48, k=8,
-                                         interpret=True, tol=tol,
-                                         early_exit=True))(pp, rhs)
-    np.testing.assert_allclose(np.asarray(ref), np.asarray(got),
-                               rtol=0, atol=1e-6)
-    assert np.isclose(float(err_ref), float(err_got), rtol=1e-4, atol=1e-7)
-
-
-def test_step_shmap_reference_mode():
-    """The explicit multi-chip step in REFERENCE mode (Rust semantics:
-    warm-started Jacobi + the model.rs:696-724 outer corrector loop on
-    the pmax'd residual) must reproduce the single-device step.
-    outer_corrector_tol=0 keeps the trip count deterministic so the
-    comparison is exact rather than tolerance-boundary-dependent."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, Semantics, SimulationParams,
-                              solver_options_for)
-    from cfd_demo_tpu.shard.step_shmap import make_run_shmap
-
-    grid = Grid(nx=96, ny=128, lx=3.0, ly=4.0,
-                obstacles=(Cylinder(0.8, 2.0, 0.3),))
-    params = SimulationParams(dt=0.002, viscosity=1e-4)
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=5, jacobi_tol=0.0, jacobi_iters=20,
-        outer_corrector_rounds=2, outer_corrector_tol=0.0, early_exit=True,
-        pressure_impl="jnp", substep_impl="jnp", pallas_fuse_k=10)
-    scene = cfd.make_scene(grid, params, opts)
-    ref_state, _ = cfd.make_run(scene, 4, donate=False)(scene.init_state())
-    mesh = make_mesh()
-    got_state, _ = make_run_shmap(scene, mesh, 4, interpret=True)(
-        scene.init_state())
-    for f in ("u", "v", "p", "p_prime"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)), rtol=0, atol=2e-6,
-            err_msg=f)
-    for f in ("res_u", "res_v", "res_p", "dt", "t"):
-        assert np.isclose(float(getattr(ref_state, f)),
-                          float(getattr(got_state, f)),
-                          rtol=1e-4, atol=1e-8), f
-
-
-def test_step_shmap_js_adaptive():
-    """JS semantics end to end multi-chip: extrapolated initial guess,
-    adaptive substeps (traced fori_loop trip count inside shard_map),
-    residual dt scaling, zero-init Jacobi, fused corrector kernel."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, Semantics, SimulationParams,
-                              solver_options_for)
-    from cfd_demo_tpu.shard.step_shmap import make_run_shmap
-
-    grid = Grid(nx=96, ny=128, lx=3.0, ly=4.0,
-                obstacles=(Cylinder(0.8, 2.0, 0.3),))
-    params = SimulationParams(dt=0.002, viscosity=1e-4)
-    opts = solver_options_for(
-        Semantics.JS, ramp_up_steps=5, jacobi_tol=0.0, jacobi_iters=20,
-        early_exit=False, extrapolate=True, substeps_init=2,
-        substeps_adaptive=True, substeps_max=4, residual_dt_scaling=True,
-        pressure_impl="jnp", substep_impl="jnp", pallas_fuse_k=10)
-    scene = cfd.make_scene(grid, params, opts)
-    ref_state, ref_d = cfd.make_run(scene, 4, donate=False)(
-        scene.init_state())
-    mesh = make_mesh()
-    got_state, got_d = make_run_shmap(scene, mesh, 4, interpret=True)(
-        scene.init_state())
-    for f in ("u", "v", "p", "p_prime", "u_prev", "v_prev"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)), rtol=0, atol=5e-5,
-            err_msg=f)
-    np.testing.assert_array_equal(np.asarray(ref_d.substeps),
-                                  np.asarray(got_d.substeps))
-    for f in ("res_u", "res_v", "res_p", "dt", "t"):
-        assert np.isclose(float(getattr(ref_state, f)),
-                          float(getattr(got_state, f)),
-                          rtol=1e-4, atol=1e-8), f
-
-
-def test_step_shmap_collective_pattern():
-    """The explicit tier's compiled HLO contains ONLY the designed
-    communication: neighbor halo exchanges (collective-permute) and
-    scalar reductions (all-reduce) -- never a full-field all-gather or
-    all-to-all (SURVEY.md section 2.7's comm-backend mapping)."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, Semantics, SimulationParams,
-                              solver_options_for)
-    from cfd_demo_tpu.shard.mesh import shard_state
-    from cfd_demo_tpu.shard.step_shmap import make_step_shmap
-
-    mesh = make_mesh()
-    grid = Grid(nx=64, ny=128, lx=4.0, ly=4.0,
-                obstacles=(Cylinder(1.0, 2.0, 0.4),))
-    scene = cfd.make_scene(
-        grid, SimulationParams(dt=0.002, viscosity=1e-4),
-        solver_options_for(Semantics.RUST, ramp_up_steps=5,
-                           jacobi_tol=0.0, jacobi_iters=20,
-                           outer_corrector_rounds=0, early_exit=False))
-    step = make_step_shmap(scene, mesh, interpret=True, jit=False)
-    state = shard_state(scene.init_state(), mesh)
-    txt = jax.jit(step).lower(state).compile().as_text()
-    assert txt.count("all-gather") == 0, "full-field gather crept in"
-    assert txt.count("all-to-all") == 0
-    n_perm = txt.count("collective-permute")
-    n_red = txt.count("all-reduce")
-    # Halo exchanges (2 directed permutes each): predictor, 1 per
-    # fused-Jacobi launch (iters/k = 2), corrector, + small glue.
-    assert 2 * (2 + 20 // 10) <= n_perm <= 2 * (7 + 20 // 10), n_perm
-    # Scalar reductions: solve error(s), res_u/res_v/max_vel, CFL.
-    assert 3 <= n_red <= 14, n_red
-
-
-@pytest.mark.parametrize("k", [2, 4])
-def test_sor_pallas_shmap_matches_single_device(k):
-    """Multi-chip fused red/black SOR (interpret mode on the CPU mesh)
-    must match the single-device solver (ops.poisson.sor)."""
-    from cfd_demo_tpu.ops.poisson import _apply_pprime_bcs, sor
-    from cfd_demo_tpu.shard.sor_shmap import sor_pallas_shmap
-    rng = np.random.default_rng(0)
-    ny = nx = 64
-    dx = dy = 1.0 / nx
-    pp = _apply_pprime_bcs(
-        jnp.asarray(rng.standard_normal((ny, nx)) * 0.1, jnp.float32))
-    rhs = jnp.asarray(rng.standard_normal((ny, nx)), jnp.float32)
-    iters = 16
-    ref, err_ref, _ = jax.jit(
-        lambda p, r: sor(p, r, dx, dy, 1.7, 0.0, iters,
-                         early_exit=False))(pp, rhs)
-    mesh = make_mesh()
-    got, err_got = jax.jit(
-        lambda p, r: sor_pallas_shmap(p, r, mesh, dx, dy, 1.7, iters,
-                                      k=k, interpret=True))(pp, rhs)
-    np.testing.assert_allclose(np.asarray(ref), np.asarray(got),
-                               rtol=0, atol=1e-6)
-    assert np.isclose(float(err_ref), float(err_got), rtol=1e-4, atol=1e-7)
-
-
 @pytest.mark.parametrize("ny,nx", [(128, 64), (96, 96)])
 def test_multigrid_shmap_matches_single_device(ny, nx):
     """Sharded V-cycle == single-device multigrid kit. 128x64 descends
     fully sharded (every level divides over 8 shards); 96x96 exercises
     the coarse-grid agglomeration fallback (24 % 16 != 0)."""
-    from cfd_demo_tpu import Semantics, solver_options_for
-    from cfd_demo_tpu.ops.poisson import multigrid
-    from cfd_demo_tpu.shard.mg_shmap import multigrid_shmap
+    from cfd_demo_jax import Semantics, solver_options_for
+    from cfd_demo_jax.ops.poisson import multigrid
+    from cfd_demo_jax.shard.mg_shmap import multigrid_shmap
     rng = np.random.default_rng(2)
     dx = dy = 1.0 / nx
     rhs = jnp.asarray(rng.standard_normal((ny, nx)), jnp.float32)
-    opts = solver_options_for(Semantics.JS, pressure_impl="jnp")
+    opts = solver_options_for(Semantics.JS)
     ref, err_ref, _ = jax.jit(
         lambda r: multigrid(jnp.zeros_like(r), r, dx, dy, opts))(rhs)
     mesh = make_mesh()
@@ -335,235 +87,9 @@ def test_multigrid_shmap_matches_single_device(ny, nx):
     assert np.isclose(float(err_ref), float(err_got), rtol=1e-4, atol=1e-7)
 
 
-def test_step_shmap_sor():
-    """End-to-end explicit multi-chip step with the SOR pressure
-    solver vs the single-device step."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, PressureSolver, Semantics,
-                              SimulationParams, solver_options_for)
-    from cfd_demo_tpu.shard.step_shmap import make_run_shmap
-
-    grid = Grid(nx=96, ny=128, lx=3.0, ly=4.0,
-                obstacles=(Cylinder(0.8, 2.0, 0.3),))
-    params = SimulationParams(dt=0.002, viscosity=1e-4,
-                              pressure_solver=PressureSolver.SOR)
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=5, jacobi_tol=0.0, jacobi_iters=20,
-        outer_corrector_rounds=0, early_exit=False, pressure_impl="jnp",
-        substep_impl="jnp", pallas_fuse_k=10)
-    scene = cfd.make_scene(grid, params, opts)
-    ref_state, _ = cfd.make_run(scene, 5, donate=False)(scene.init_state())
-    mesh = make_mesh()
-    got_state, _ = make_run_shmap(scene, mesh, 5, interpret=True)(
-        scene.init_state())
-    # The SOR kernel's reciprocal-multiplier arithmetic differs from
-    # the jnp path's divides by ~1 ulp per sweep (kernels.sor_pallas
-    # docstring); accumulated into p (magnitude ~5 near the inlet) over
-    # 5 steps x 20 iterations that reaches ~2e-5 absolute.
-    for f in ("u", "v", "p", "p_prime"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)), rtol=0, atol=5e-5,
-            err_msg=f)
-    for f in ("res_u", "res_v", "res_p", "dt", "t"):
-        assert np.isclose(float(getattr(ref_state, f)),
-                          float(getattr(got_state, f)),
-                          rtol=1e-4, atol=1e-8), f
-
-
-def test_step_shmap_multigrid():
-    """End-to-end explicit multi-chip step with the multigrid pressure
-    solver (JS semantics, its native habitat) vs single-device."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, PressureSolver, Semantics,
-                              SimulationParams, solver_options_for)
-    from cfd_demo_tpu.shard.step_shmap import make_run_shmap
-
-    grid = Grid(nx=96, ny=128, lx=3.0, ly=4.0,
-                obstacles=(Cylinder(0.8, 2.0, 0.3),))
-    params = SimulationParams(dt=0.002, viscosity=1e-4,
-                              pressure_solver=PressureSolver.MULTIGRID)
-    opts = solver_options_for(
-        Semantics.JS, ramp_up_steps=5, early_exit=False,
-        pressure_impl="jnp", substep_impl="jnp")
-    scene = cfd.make_scene(grid, params, opts)
-    ref_state, _ = cfd.make_run(scene, 4, donate=False)(scene.init_state())
-    mesh = make_mesh()
-    got_state, _ = make_run_shmap(scene, mesh, 4, interpret=True)(
-        scene.init_state())
-    for f in ("u", "v", "p"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)), rtol=0, atol=1e-6,
-            err_msg=f)
-    for f in ("res_u", "res_v", "res_p", "dt", "t"):
-        assert np.isclose(float(getattr(ref_state, f)),
-                          float(getattr(got_state, f)),
-                          rtol=1e-4, atol=1e-8), f
-
-
-def test_step_shmap_mg_production():
-    """End-to-end explicit multi-chip step with the MG_PRODUCTION
-    projection (docs/SPEC.md item 12) vs single-device: BC-aware
-    sharded smoothing, warm starts, and the globally pmax'd
-    divergence-calibrated exit must reproduce the XLA path exactly
-    (max is an exact reduction, so cycle counts agree)."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, PressureSolver, Semantics,
-                              SimulationParams, solver_options_for)
-    from cfd_demo_tpu.shard.step_shmap import make_run_shmap
-
-    grid = Grid(nx=96, ny=128, lx=3.0, ly=4.0,
-                obstacles=(Cylinder(0.8, 2.0, 0.3),))
-    params = SimulationParams(dt=0.002, viscosity=1e-4,
-                              pressure_solver=PressureSolver.MG_PRODUCTION)
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=5, outer_corrector_rounds=0,
-        pressure_impl="jnp", substep_impl="jnp")
-    scene = cfd.make_scene(grid, params, opts)
-    ref_state, _ = cfd.make_run(scene, 4, donate=False)(scene.init_state())
-    mesh = make_mesh()
-    got_state, _ = make_run_shmap(scene, mesh, 4, interpret=True)(
-        scene.init_state())
-    # Bitwise-equal through step 2; from step 3 FMA-contraction /
-    # reassociation ulps between the two lowered programs accumulate
-    # through MGP's many warm-started smoothing sweeps (measured at
-    # step 4: u 5.6e-7, p'/p ~4e-6 relative, res_p 1.3e-4 relative).
-    np.testing.assert_allclose(np.asarray(ref_state.u),
-                               np.asarray(got_state.u),
-                               rtol=0, atol=1e-5, err_msg="u")
-    np.testing.assert_allclose(np.asarray(ref_state.v),
-                               np.asarray(got_state.v),
-                               rtol=0, atol=1e-5, err_msg="v")
-    for f in ("p", "p_prime"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)),
-            rtol=1e-4, atol=1e-6, err_msg=f)
-    for f in ("res_u", "res_v", "res_p", "dt", "t"):
-        assert np.isclose(float(getattr(ref_state, f)),
-                          float(getattr(got_state, f)),
-                          rtol=1e-3, atol=1e-8), f
-
-
-def test_step_shmap_fdm():
-    """End-to-end explicit multi-chip step with the FDM direct
-    projection (docs/SPEC.md item 13) vs single-device. The sharded
-    tier gathers the rhs and runs the eigenbasis matmuls replicated,
-    so every value is computed by the identical program on identical
-    inputs -- fields must match bitwise."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, PressureSolver, Semantics,
-                              SimulationParams, solver_options_for)
-    from cfd_demo_tpu.shard.step_shmap import make_run_shmap
-
-    grid = Grid(nx=96, ny=128, lx=3.0, ly=4.0,
-                obstacles=(Cylinder(0.8, 2.0, 0.3),))
-    params = SimulationParams(dt=0.002, viscosity=1e-4,
-                              pressure_solver=PressureSolver.FDM)
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=5, outer_corrector_rounds=0,
-        pressure_impl="jnp", substep_impl="jnp")
-    scene = cfd.make_scene(grid, params, opts)
-    ref_state, _ = cfd.make_run(scene, 4, donate=False)(scene.init_state())
-    mesh = make_mesh()
-    got_state, _ = make_run_shmap(scene, mesh, 4, interpret=True)(
-        scene.init_state())
-    for f in ("u", "v", "p", "p_prime"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)), err_msg=f)
-    for f in ("res_u", "res_v", "res_p", "dt", "t"):
-        assert float(getattr(ref_state, f)) == float(getattr(got_state, f)), f
-
-
-def test_step_shmap_mg_production_rtol():
-    """The relative-reduction exit (opts.mgp_rtol, widening tol_r to
-    max(abs, rtol * warm-start residual)) must agree between the
-    explicit sharded solve (pmax'd r0, shard/mg_shmap.py) and the
-    single-device path -- including the per-substep cycle counts that
-    the shared threshold determines."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, PressureSolver, Semantics,
-                              SimulationParams, solver_options_for)
-    from cfd_demo_tpu.shard.step_shmap import make_run_shmap
-
-    grid = Grid(nx=96, ny=128, lx=3.0, ly=4.0,
-                obstacles=(Cylinder(0.8, 2.0, 0.3),))
-    params = SimulationParams(dt=0.002, viscosity=1e-4,
-                              pressure_solver=PressureSolver.MG_PRODUCTION)
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=5, outer_corrector_rounds=0,
-        pressure_impl="jnp", substep_impl="jnp", mgp_rtol=5e-2)
-    scene = cfd.make_scene(grid, params, opts)
-    ref_state, _ = cfd.make_run(scene, 3, donate=False)(scene.init_state())
-    got_state, _ = make_run_shmap(scene, make_mesh(), 3, interpret=True)(
-        scene.init_state())
-    np.testing.assert_allclose(np.asarray(ref_state.u),
-                               np.asarray(got_state.u),
-                               rtol=0, atol=1e-5, err_msg="u")
-    np.testing.assert_allclose(np.asarray(ref_state.p),
-                               np.asarray(got_state.p),
-                               rtol=1e-4, atol=1e-6, err_msg="p")
-    for f in ("res_p", "dt", "t"):
-        assert np.isclose(float(getattr(ref_state, f)),
-                          float(getattr(got_state, f)),
-                          rtol=1e-3, atol=1e-8), f
-
-
-def test_step_shmap_collective_pattern_sor_mg():
-    """SOR and fully-sharded multigrid steps keep the pinned
-    communication pattern: permutes + scalar reductions, no full-field
-    all-gather / all-to-all. MG_PRODUCTION's aligned hierarchy
-    agglomerates its coarse levels by design (shard.mg_shmap
-    _aligned_restrict_shard): its gathers are allowed but must be at
-    COARSE size (first dim <= ny // 2) -- a fine-field gather is still
-    a regression."""
-    import re
-
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, PressureSolver, Semantics,
-                              SimulationParams, solver_options_for)
-    from cfd_demo_tpu.shard.mesh import shard_state
-    from cfd_demo_tpu.shard.step_shmap import make_step_shmap
-
-    mesh = make_mesh()
-    grid = Grid(nx=64, ny=128, lx=4.0, ly=4.0,
-                obstacles=(Cylinder(1.0, 2.0, 0.4),))
-    for solver in (PressureSolver.SOR, PressureSolver.MULTIGRID,
-                   PressureSolver.MG_PRODUCTION):
-        scene = cfd.make_scene(
-            grid, SimulationParams(dt=0.002, viscosity=1e-4,
-                                   pressure_solver=solver),
-            solver_options_for(Semantics.RUST, ramp_up_steps=5,
-                               jacobi_tol=0.0, jacobi_iters=20,
-                               # below this grid's 62-row interior so
-                               # the aligned cycle takes the sharded
-                               # restrict, not the documented
-                               # small-grid full-gather FDM fallback
-                               # (mg_shmap._vcycle_mgp_aligned_shard)
-                               mgp_coarse_stop=16,
-                               outer_corrector_rounds=0, early_exit=False))
-        step = make_step_shmap(scene, mesh, interpret=True, jit=False)
-        state = shard_state(scene.init_state(), mesh)
-        txt = jax.jit(step).lower(state).compile().as_text()
-        if solver == PressureSolver.MG_PRODUCTION:
-            for line in txt.splitlines():
-                if "all-gather" not in line:
-                    continue
-                dims = [int(m.group(1)) for m in
-                        re.finditer(r"f32\[(\d+),\d+\]", line)]
-                assert dims and max(dims) <= grid.ny // 2, (
-                    f"fine-field gather crept in: {line.strip()}")
-        else:
-            assert txt.count("all-gather") == 0, f"{solver}: gather"
-        assert txt.count("all-to-all") == 0, solver
-        assert txt.count("collective-permute") > 0, solver
-
-
 def test_exchange_cols():
     """Column-halo primitive for the 2-D spatial mesh."""
-    from cfd_demo_tpu.shard.halo import exchange_cols
+    from cfd_demo_jax.shard.halo import exchange_cols
     from jax.sharding import Mesh, PartitionSpec as P
     n = len(jax.devices())
     mesh = Mesh(np.array(jax.devices()), ("x",))
@@ -592,426 +118,3 @@ def test_exchange_cols():
                 blk[:, -2:], ref[:, (s + 1) * local:(s + 1) * local + 2])
         else:
             np.testing.assert_array_equal(blk[:, -2:], 0)
-
-
-def test_sor_k_divides_jacobi_iters():
-    """Regression: halving a resolved divisor of jacobi_iters need not
-    stay a divisor (base 25 at >= 48M cells halves to 12, which does
-    not divide the default 50); auto _sor_k must re-resolve downward
-    so _check_supported accepts default configs at every size."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Grid, PressureSolver, Semantics,
-                              SimulationParams, solver_options_for)
-    from cfd_demo_tpu.shard.step_shmap import _sor_k
-
-    for nx, ny, iters in ((8192, 8192, 50), (512, 512, 50),
-                          (8192, 8192, 18), (256, 256, 25)):
-        grid = Grid(nx=nx, ny=ny, lx=1.0, ly=1.0)
-        params = SimulationParams(dt=0.001, viscosity=1e-4,
-                                  pressure_solver=PressureSolver.SOR)
-        opts = solver_options_for(Semantics.JS, jacobi_iters=iters,
-                                  substeps_adaptive=False,
-                                  substeps_init=1)
-        scene = cfd.make_scene(grid, params, opts)
-        k = _sor_k(scene)
-        assert k >= 1 and iters % k == 0, (nx, iters, k)
-
-
-# ---------------------------------------------------------------------------
-# 2-D (rows x cols) explicit tier -- shard.step_shmap2d (round 3)
-# ---------------------------------------------------------------------------
-
-def _mesh2d():
-    from cfd_demo_tpu.shard.mesh import make_mesh2d_spatial
-    return make_mesh2d_spatial(2, 4)
-
-
-def _scene_2d(semantics, flow_case=None, nx=128, ny=64):
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, FlowCase, Grid, SimulationParams,
-                              solver_options_for)
-    kw = {}
-    if flow_case is not None:
-        kw["flow_case"] = flow_case
-    if flow_case == FlowCase.CAVITY:
-        grid = Grid(nx=nx, ny=ny, lx=1.0, ly=1.0)
-    else:
-        grid = Grid(nx=nx, ny=ny, lx=8.0, ly=4.0,
-                    obstacles=(Cylinder(2.0, 2.0, 0.5),))
-    opts = solver_options_for(
-        semantics, ramp_up_steps=5, jacobi_tol=0.0, jacobi_iters=20,
-        outer_corrector_rounds=0, early_exit=False, pallas_fuse_k=10)
-    return cfd.make_scene(
-        grid, SimulationParams(dt=0.002, viscosity=1e-4, **kw), opts)
-
-
-def _run_2d(scene, n_steps):
-    from cfd_demo_tpu.shard.mesh import join_u, shard_state_2d
-    from cfd_demo_tpu.shard.step_shmap2d import make_run_shmap_2d
-    mesh = _mesh2d()
-    s = shard_state_2d(scene.init_state(), mesh)
-    s, diags = make_run_shmap_2d(scene, mesh, n_steps, interpret=True)(s)
-    return join_u(s), diags
-
-
-@pytest.mark.parametrize("semantics", ["RUST", "JS"])
-def test_step_shmap_2d_matches_single_device(semantics):
-    """The fully explicit 2-D rows x cols step (both-axis ppermute
-    halos + fused kernels with global row/column offsets) reproduces
-    the single-device fast step: fields bitwise-close, scalars equal --
-    including JS extrapolation + adaptive substeps riding the tier."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import Semantics
-    sem = getattr(Semantics, semantics)
-    scene = _scene_2d(sem)
-
-    ref_state, ref_diags = cfd.make_run(scene, 5, donate=False)(
-        scene.init_state())
-    got_state, got_diags = _run_2d(scene, 5)
-
-    # JS accumulates large p (zero-init solves, ~1e2 field scale), so
-    # reassociation ulps between the two lowered programs need a
-    # relative term there -- same envelope as the rows-tier JS test.
-    tols = ({"p": dict(rtol=1e-4, atol=1e-6),
-             "p_prime": dict(rtol=1e-4, atol=1e-6)}
-            if semantics == "JS" else {})
-    for f in ("u", "v", "p", "p_prime"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)),
-            **tols.get(f, dict(rtol=0, atol=1e-6)), err_msg=f)
-    for f in ("res_u", "res_v", "res_p", "dt", "t"):
-        assert np.isclose(float(getattr(ref_state, f)),
-                          float(getattr(got_state, f)),
-                          rtol=1e-4, atol=1e-8), f
-    np.testing.assert_array_equal(np.asarray(ref_diags.substeps),
-                                  np.asarray(got_diags.substeps))
-    np.testing.assert_allclose(np.asarray(ref_diags.res_p),
-                               np.asarray(got_diags.res_p),
-                               rtol=1e-5, atol=1e-8)
-
-
-def test_step_shmap_2d_cavity():
-    """Cavity flow case on the 2-D tier: all-Neumann p' BCs with the
-    gauge pin land on the right global rows/columns of every shard."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import FlowCase, Semantics
-    scene = _scene_2d(Semantics.RUST, flow_case=FlowCase.CAVITY,
-                      nx=128, ny=64)
-
-    ref_state, _ = cfd.make_run(scene, 4, donate=False)(
-        scene.init_state())
-    got_state, _ = _run_2d(scene, 4)
-    for f in ("u", "v", "p"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)), rtol=0, atol=1e-6,
-            err_msg=f)
-
-
-def test_step_shmap_2d_collective_pattern():
-    """The 2-D tier's compiled communication stays pinned gather-free:
-    row/column ppermutes (collective-permute) + scalar all-reduce only
-    -- no full-field all-gather or all-to-all on either mesh axis."""
-    from cfd_demo_tpu import Semantics
-    from cfd_demo_tpu.shard.mesh import shard_state_2d
-    from cfd_demo_tpu.shard.step_shmap2d import make_step_shmap_2d
-
-    scene = _scene_2d(Semantics.RUST)
-    mesh = _mesh2d()
-    step = make_step_shmap_2d(scene, mesh, interpret=True, jit=False)
-    s = shard_state_2d(scene.init_state(), mesh)
-    txt = jax.jit(step).lower(s).compile().as_text()
-    assert txt.count("all-gather") == 0, "full-field gather crept in"
-    assert txt.count("all-to-all") == 0
-    assert txt.count("collective-permute") > 0
-
-
-def test_step_shmap_2d_rejects_unsupported():
-    """Unsupported modes route to the rows tier with a clear error;
-    the round-4 widening means DEFAULT Rust opts (outer corrector
-    rounds + early exit) now BUILD on this tier."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, PressureSolver, Semantics,
-                              SimulationParams, solver_options_for)
-    from cfd_demo_tpu.shard.step_shmap2d import make_step_shmap_2d
-    grid = Grid(nx=128, ny=64, lx=8.0, ly=4.0,
-                obstacles=(Cylinder(2.0, 2.0, 0.5),))
-    mesh = _mesh2d()
-    # Round 4: the reference-exact default (rounds=20) builds.
-    assert make_step_shmap_2d(cfd.make_scene(
-        grid, SimulationParams(dt=0.002, viscosity=1e-4),
-        solver_options_for(Semantics.RUST)), mesh) is not None
-    # The legacy MGP hierarchy stays rows-tier-only.
-    with pytest.raises(ValueError, match="rows tier"):
-        make_step_shmap_2d(cfd.make_scene(
-            grid, SimulationParams(
-                dt=0.002, viscosity=1e-4,
-                pressure_solver=PressureSolver.MG_PRODUCTION),
-            solver_options_for(Semantics.RUST, mgp_scheme="legacy",
-                               outer_corrector_rounds=0)), mesh)
-    with pytest.raises(ValueError, match="JACOBI/SOR/FDM"):
-        make_step_shmap_2d(cfd.make_scene(
-            grid, SimulationParams(
-                dt=0.002, viscosity=1e-4,
-                pressure_solver=PressureSolver.MULTIGRID),
-            solver_options_for(Semantics.RUST, jacobi_tol=0.0,
-                               outer_corrector_rounds=0,
-                               early_exit=False)), mesh)
-    with pytest.raises(ValueError, match="lexicographic"):
-        make_step_shmap_2d(cfd.make_scene(
-            grid, SimulationParams(dt=0.002, viscosity=1e-4,
-                                   pressure_solver=PressureSolver.SOR),
-            solver_options_for(Semantics.RUST, jacobi_tol=0.0,
-                               outer_corrector_rounds=0,
-                               early_exit=False,
-                               sor_ordering="lexicographic")), mesh)
-
-
-@pytest.mark.parametrize("solver", ["sor", "fdm"])
-def test_step_shmap_2d_alt_solvers(solver):
-    """Round-3 widening: red/black SOR (globally-keyed colors through
-    the 2-D offset shard kernel) and FDM (both-axis gather + replicated
-    exact solve) on the explicit rows x cols tier."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, PressureSolver, Semantics,
-                              SimulationParams, solver_options_for)
-
-    grid = Grid(nx=128, ny=64, lx=8.0, ly=4.0,
-                obstacles=(Cylinder(2.0, 2.0, 0.5),))
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=5, jacobi_tol=0.0, jacobi_iters=20,
-        outer_corrector_rounds=0, early_exit=False, pallas_fuse_k=10)
-    scene = cfd.make_scene(
-        grid, SimulationParams(dt=0.002, viscosity=1e-4,
-                               pressure_solver=PressureSolver(solver)),
-        opts)
-
-    ref_state, _ = cfd.make_run(scene, 4, donate=False)(
-        scene.init_state())
-    got_state, _ = _run_2d(scene, 4)
-    for f in ("u", "v", "p", "p_prime"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)), rtol=0, atol=2e-5,
-            err_msg=f)
-
-
-def test_step_shmap_2d_shape_fuzz():
-    """Randomized grid/mesh shapes through the 2-D explicit tier:
-    uneven aspect ratios, 4x2 vs 2x4 meshes, obstacle near a shard
-    corner -- equality vs single-device for each draw."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, Semantics, SimulationParams,
-                              solver_options_for)
-    from cfd_demo_tpu.shard.mesh import (join_u, make_mesh2d_spatial,
-                                         shard_state_2d)
-    from cfd_demo_tpu.shard.step_shmap2d import make_run_shmap_2d
-
-    rng = np.random.default_rng(17)
-    for trial in range(3):
-        rows, cols = [(2, 4), (4, 2), (2, 4)][trial]
-        loc_y = 8 * int(rng.integers(2, 5))       # 16..32 rows/shard
-        loc_x = int(rng.integers(18, 40))         # >= min_loc+1 cols
-        ny, nx = rows * loc_y, cols * loc_x
-        lx, ly = nx / 16.0, ny / 16.0
-        cx = float(rng.uniform(0.3 * lx, 0.7 * lx))
-        cy = float(rng.uniform(0.3 * ly, 0.7 * ly))
-        r = float(rng.uniform(0.1, 0.2)) * min(lx, ly)
-        grid = Grid(nx=nx, ny=ny, lx=lx, ly=ly,
-                    obstacles=(Cylinder(cx, cy, r),))
-        opts = solver_options_for(
-            Semantics.RUST, ramp_up_steps=4, jacobi_tol=0.0,
-            jacobi_iters=16, outer_corrector_rounds=0, early_exit=False,
-            pallas_fuse_k=8)
-        scene = cfd.make_scene(
-            grid, SimulationParams(dt=0.002, viscosity=1e-4), opts)
-        ref, _ = cfd.make_run(scene, 3, donate=False)(scene.init_state())
-        mesh = make_mesh2d_spatial(rows, cols)
-        s = shard_state_2d(scene.init_state(), mesh)
-        s, _ = make_run_shmap_2d(scene, mesh, 3, interpret=True)(s)
-        got = join_u(s)
-        for f in ("u", "v", "p"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(ref, f)),
-                np.asarray(getattr(got, f)), rtol=0, atol=1e-6,
-                err_msg=f"trial {trial} {ny}x{nx} {rows}x{cols} {f}")
-
-
-def test_step_shmap_2d_mg_production():
-    """Round 4 (VERDICT r3 item 3): the production projection on the
-    explicit 2-D rows x cols tier. A 256-wide grid keeps the interior
-    above mgp_coarse_stop so the cycle takes the both-axis SHARDED
-    restrict (shard.mg_shmap._aligned_restrict_shard2d), not the
-    small-grid gather fallback; warm starts and the pmax2'd
-    divergence-calibrated floor exit must reproduce the single-device
-    solve (same cycle counts -- max is an exact reduction)."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, PressureSolver, Semantics,
-                              SimulationParams, solver_options_for)
-
-    grid = Grid(nx=256, ny=128, lx=8.0, ly=4.0,
-                obstacles=(Cylinder(2.0, 2.0, 0.5),))
-    params = SimulationParams(dt=0.002, viscosity=1e-4,
-                              pressure_solver=PressureSolver.MG_PRODUCTION)
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=5, outer_corrector_rounds=0,
-        pressure_impl="jnp", substep_impl="jnp")
-    scene = cfd.make_scene(grid, params, opts)
-    assert min(grid.ny - 2, grid.nx - 2) > opts.mgp_coarse_stop
-
-    ref_state, _ = cfd.make_run(scene, 4, donate=False)(scene.init_state())
-    got_state, _ = _run_2d(scene, 4)
-    # Same envelope as the rows-tier MGP test: reassociation /
-    # fma-contraction ulps accumulate through the warm-started sweeps.
-    np.testing.assert_allclose(np.asarray(ref_state.u),
-                               np.asarray(got_state.u),
-                               rtol=0, atol=1e-5, err_msg="u")
-    np.testing.assert_allclose(np.asarray(ref_state.v),
-                               np.asarray(got_state.v),
-                               rtol=0, atol=1e-5, err_msg="v")
-    for f in ("p", "p_prime"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)),
-            rtol=1e-4, atol=1e-6, err_msg=f)
-    for f in ("res_u", "res_v", "res_p", "dt", "t"):
-        assert np.isclose(float(getattr(ref_state, f)),
-                          float(getattr(got_state, f)),
-                          rtol=1e-3, atol=1e-8), f
-
-
-def test_step_shmap_2d_mgp_fixed_cycles():
-    """ADVICE r4: opts.mgp_fixed_cycles on the 2-D tier must run the
-    deterministic fixed schedule (ops.poisson._mgp_fixed twin), not the
-    adaptive masked loop — fields equal single-device for that config."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, PressureSolver, Semantics,
-                              SimulationParams, solver_options_for)
-
-    grid = Grid(nx=256, ny=128, lx=8.0, ly=4.0,
-                obstacles=(Cylinder(2.0, 2.0, 0.5),))
-    params = SimulationParams(dt=0.002, viscosity=1e-4,
-                              pressure_solver=PressureSolver.MG_PRODUCTION)
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=5, outer_corrector_rounds=0,
-        mgp_fixed_cycles=3,
-        pressure_impl="jnp", substep_impl="jnp")
-    scene = cfd.make_scene(grid, params, opts)
-
-    ref_state, _ = cfd.make_run(scene, 4, donate=False)(scene.init_state())
-    got_state, _ = _run_2d(scene, 4)
-    for f in ("u", "v"):
-        np.testing.assert_allclose(np.asarray(getattr(ref_state, f)),
-                                   np.asarray(getattr(got_state, f)),
-                                   rtol=0, atol=1e-5, err_msg=f)
-    for f in ("p", "p_prime"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)),
-            rtol=1e-4, atol=1e-6, err_msg=f)
-    for f in ("res_u", "res_v", "res_p", "dt", "t"):
-        assert np.isclose(float(getattr(ref_state, f)),
-                          float(getattr(got_state, f)),
-                          rtol=1e-3, atol=1e-8), f
-
-
-def test_step_shmap_2d_reference_mode():
-    """Round 4 (VERDICT r3 item 3): the reference-exact Rust semantics
-    (warm-started Jacobi + the model.rs:696-724 outer corrector loop on
-    the pmax2'd residual) on the explicit 2-D rows x cols tier.
-    outer_corrector_tol=0 keeps the trip count deterministic."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, Semantics, SimulationParams,
-                              solver_options_for)
-
-    grid = Grid(nx=128, ny=64, lx=8.0, ly=4.0,
-                obstacles=(Cylinder(2.0, 2.0, 0.5),))
-    params = SimulationParams(dt=0.002, viscosity=1e-4)
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=5, jacobi_tol=0.0, jacobi_iters=20,
-        outer_corrector_rounds=2, outer_corrector_tol=0.0,
-        early_exit=True, pallas_fuse_k=10)
-    scene = cfd.make_scene(grid, params, opts)
-
-    ref_state, _ = cfd.make_run(scene, 4, donate=False)(scene.init_state())
-    got_state, _ = _run_2d(scene, 4)
-    for f in ("u", "v", "p", "p_prime"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)), rtol=0, atol=2e-6,
-            err_msg=f)
-    for f in ("res_u", "res_v", "res_p", "dt", "t"):
-        assert np.isclose(float(getattr(ref_state, f)),
-                          float(getattr(got_state, f)),
-                          rtol=1e-4, atol=1e-8), f
-
-
-def test_step_shmap_2d_mgp_with_rounds():
-    """MG_PRODUCTION inside the Rust outer corrector loop on the 2-D
-    tier: each round re-solves with the dt_sub-scaled tolerance and a
-    warm start. Small grid exercises the gather-fallback correction."""
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, PressureSolver, Semantics,
-                              SimulationParams, solver_options_for)
-
-    grid = Grid(nx=128, ny=64, lx=8.0, ly=4.0,
-                obstacles=(Cylinder(2.0, 2.0, 0.5),))
-    params = SimulationParams(dt=0.002, viscosity=1e-4,
-                              pressure_solver=PressureSolver.MG_PRODUCTION)
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=5, outer_corrector_rounds=2,
-        outer_corrector_tol=0.0, early_exit=True,
-        pressure_impl="jnp", substep_impl="jnp")
-    scene = cfd.make_scene(grid, params, opts)
-
-    ref_state, _ = cfd.make_run(scene, 3, donate=False)(scene.init_state())
-    got_state, _ = _run_2d(scene, 3)
-    for f in ("u", "v", "p"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ref_state, f)),
-            np.asarray(getattr(got_state, f)), rtol=0, atol=1e-5,
-            err_msg=f)
-    for f in ("res_p", "dt", "t"):
-        assert np.isclose(float(getattr(ref_state, f)),
-                          float(getattr(got_state, f)),
-                          rtol=1e-3, atol=1e-8), f
-
-
-def test_step_shmap_2d_collective_pattern_mgp():
-    """The 2-D MGP step's compiled communication stays pinned: row and
-    column permutes + scalar reductions; its by-design coarse-level
-    agglomeration gathers are allowed but must be at COARSE size (every
-    f32 dim <= the matching grid dim // 2) -- a fine-field gather is a
-    regression."""
-    import re
-
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu import (Cylinder, Grid, PressureSolver, Semantics,
-                              SimulationParams, solver_options_for)
-    from cfd_demo_tpu.shard.mesh import shard_state_2d
-    from cfd_demo_tpu.shard.step_shmap2d import make_step_shmap_2d
-
-    grid = Grid(nx=256, ny=128, lx=8.0, ly=4.0,
-                obstacles=(Cylinder(2.0, 2.0, 0.5),))
-    opts = solver_options_for(
-        Semantics.RUST, ramp_up_steps=5, outer_corrector_rounds=0,
-        mgp_coarse_stop=16)
-    scene = cfd.make_scene(
-        grid, SimulationParams(dt=0.002, viscosity=1e-4,
-                               pressure_solver=PressureSolver.MG_PRODUCTION),
-        opts)
-    mesh = _mesh2d()
-    step = make_step_shmap_2d(scene, mesh, interpret=True, jit=False)
-    s = shard_state_2d(scene.init_state(), mesh)
-    txt = jax.jit(step).lower(s).compile().as_text()
-    for line in txt.splitlines():
-        if "all-gather" not in line:
-            continue
-        dims = [(int(m.group(1)), int(m.group(2))) for m in
-                re.finditer(r"f32\[(\d+),(\d+)\]", line)]
-        assert dims and all(a <= grid.ny // 2 and b <= grid.nx // 2
-                            for a, b in dims), (
-            f"fine-field gather crept in: {line.strip()}")
-    assert txt.count("all-to-all") == 0
-    assert txt.count("collective-permute") > 0

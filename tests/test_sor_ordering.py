@@ -17,10 +17,10 @@ import dataclasses
 import numpy as np
 import pytest
 
-from cfd_demo_tpu import solver_options_for
-from cfd_demo_tpu.core.config import (Cylinder, Grid, PressureSolver,
+from cfd_demo_jax import solver_options_for
+from cfd_demo_jax.core.config import (Cylinder, Grid, PressureSolver,
                                       Semantics, SimulationParams)
-from cfd_demo_tpu.oracle.reference import NumpyModel
+from cfd_demo_jax.oracle.reference import NumpyModel
 
 F = np.float32
 
@@ -91,7 +91,7 @@ def test_device_lexicographic_solve_matches_oracle():
     per cell (the ordering deviation is gone); the only residue is
     compiler fma/contraction noise, measured ~2 ulp/sweep. Bound:
     8 * eps * scale * iters."""
-    from cfd_demo_tpu.ops.poisson import sor_lexicographic
+    from cfd_demo_jax.ops.poisson import sor_lexicographic
 
     grid, params, opts = _scene()
     rhs, p = _developed_rhs(grid, params, opts)
@@ -119,7 +119,7 @@ def test_device_lexicographic_step_golden():
     """Full device steps with sor_ordering='lexicographic' track the
     lexicographic oracle per step (fixed iteration schedule pins the
     discretization; per-field L2 <= 1e-5, the BASELINE acceptance)."""
-    import cfd_demo_tpu as cfd
+    import cfd_demo_jax as cfd
     from conftest import l2
 
     grid, params, opts = _scene()
@@ -143,7 +143,7 @@ def test_device_lexicographic_step_golden():
 def test_lexicographic_masked_loop_matches_exact():
     """early_exit=False (the vmap-exact masked loop) produces the same
     fields and iteration count as the exact while_loop."""
-    from cfd_demo_tpu.ops.poisson import sor_lexicographic
+    from cfd_demo_jax.ops.poisson import sor_lexicographic
 
     grid, params, opts = _scene()
     rhs, p = _developed_rhs(grid, params, opts)
@@ -154,25 +154,3 @@ def test_lexicographic_masked_loop_matches_exact():
     assert np.array_equal(np.asarray(pp_a), np.asarray(pp_b))
     assert float(err_a) == float(err_b)
     assert int(n_a) == int(n_b)
-
-
-def test_lexicographic_rejected_by_step_shmap():
-    """The explicit shard tier refuses the sequential ordering loudly
-    (its wavefront spans every row of the sharded axis)."""
-    import jax
-
-    import cfd_demo_tpu as cfd
-    from cfd_demo_tpu.shard.step_shmap import make_step_shmap
-
-    grid = Grid(nx=64, ny=32, lx=30.0, ly=10.0,
-                obstacles=(Cylinder(7.5, 5.0, 0.75),))
-    params = SimulationParams(dt=0.005, viscosity=1e-4,
-                              pressure_solver=PressureSolver.SOR)
-    opts = solver_options_for(Semantics.JS, ramp_up_steps=10,
-                              substeps_adaptive=False, substeps_init=1,
-                              sor_ordering="lexicographic")
-    scene = cfd.make_scene(grid, params, opts)
-    from jax.sharding import Mesh
-    mesh = Mesh(np.array(jax.devices()[:2]), ("y",))
-    with pytest.raises(ValueError, match="lexicographic"):
-        make_step_shmap(scene, mesh)
